@@ -1,0 +1,160 @@
+"""DETR decoder, eval path (port of ``sam3_lora_tpu/models/decoder.py``):
+learned queries and reference boxes, a presence token, text
+cross-attention, image cross-attention with the separable log-scale boxRPB
+bias, and iterative box refinement. DAC query doubling is training-only and
+not ported.
+
+Presence-logit clamp: the reference calls ``logits.clamp(...)`` without
+assigning it, so no clamp is applied here either.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.boxes import box_cxcywh_to_xyxy, inverse_sigmoid
+from ..ops.posenc import gen_sineembed_for_position
+from .layers import MLP, Embedding, LayerNorm, LoRALinear, MultiHeadAttention, Spec
+
+
+class DecoderOutput(NamedTuple):
+    hs: torch.Tensor               # (layers, B, Q, D) normed per-layer queries
+    reference_boxes: torch.Tensor  # (layers, B, Q, 4) box input to each layer
+    pred_coords: torch.Tensor      # (layers, B, Q, 4) refined boxes, cxcywh
+    presence_logits: Optional[torch.Tensor]  # (layers, B, 1)
+    presence_feats: Optional[torch.Tensor]   # (B, 1, D)
+
+
+class BoxRPB(nn.Module):
+    """Log-scale box relative-position bias, as separable halves."""
+
+    def __init__(self, spec: Spec, heads: int):
+        super().__init__()
+        cfg = spec.model
+        self.mode = cfg.box_rpb
+        in_dim = 4 if cfg.box_rpb == "both" else 2
+        self.boxRPB_embed_x = MLP(in_dim, cfg.d_model, heads, 2, spec)
+        self.boxRPB_embed_y = MLP(in_dim, cfg.d_model, heads, 2, spec)
+
+    def forward(self, reference_boxes: torch.Tensor, feat_hw: Tuple[int, int]):
+        """reference_boxes (B, Q, 4) cxcywh -> dy (B, Q, H, heads), dx (B, Q, W, heads)."""
+        h, w = feat_hw
+        dev = reference_boxes.device
+        xyxy = box_cxcywh_to_xyxy(reference_boxes)
+        coords_h = torch.arange(h, dtype=torch.float32, device=dev) / h
+        coords_w = torch.arange(w, dtype=torch.float32, device=dev) / w
+        dy = coords_h[None, None, :, None] - xyxy[:, :, None, 1:4:2]
+        dx = coords_w[None, None, :, None] - xyxy[:, :, None, 0:3:2]
+        if self.mode in ("log", "both"):
+            def logscale(t):
+                t = t * 8.0
+                return torch.sign(t) * torch.log2(t.abs() + 1.0) / math.log2(8.0)
+
+            if self.mode == "log":
+                dy, dx = logscale(dy), logscale(dx)
+            else:
+                dy = torch.cat([dy, logscale(dy)], -1)
+                dx = torch.cat([dx, logscale(dx)], -1)
+        return self.boxRPB_embed_y(dy), self.boxRPB_embed_x(dx)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, spec: Spec):
+        super().__init__()
+        cfg = spec.model
+        d, heads = cfg.d_model, cfg.dec_heads
+        self.self_attn = MultiHeadAttention(d, heads, spec)
+        self.norm2 = LayerNorm(d, spec)
+        self.ca_text = MultiHeadAttention(d, heads, spec)
+        self.catext_norm = LayerNorm(d, spec)
+        self.cross_attn = MultiHeadAttention(d, heads, spec)
+        self.norm1 = LayerNorm(d, spec)
+        self.linear1 = LoRALinear(d, cfg.dec_ffn_dim, spec)
+        self.linear2 = LoRALinear(cfg.dec_ffn_dim, d, spec)
+        self.norm3 = LayerNorm(d, spec)
+
+    def forward(self, tgt, query_pos, memory, memory_pos, memory_text, text_mask,
+                separable_bias, presence):
+        if presence is not None:
+            tgt = torch.cat([presence, tgt], dim=1)
+            query_pos = torch.cat([torch.zeros_like(presence), query_pos], dim=1)
+        qk = tgt + query_pos
+        tgt = self.norm2(tgt + self.self_attn(qk, qk, tgt))
+        ca = self.ca_text(tgt + query_pos, memory_text, memory_text, key_padding_mask=text_mask)
+        tgt = self.catext_norm(tgt + ca)
+        ca = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
+                             separable_bias=separable_bias)
+        tgt = self.norm1(tgt + ca)
+        y = self.linear2(F.relu(self.linear1(tgt)))
+        tgt = self.norm3(tgt + y)
+        if presence is not None:
+            return tgt[:, 1:], tgt[:, :1]
+        return tgt, None
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, spec: Spec):
+        super().__init__()
+        cfg = spec.model
+        d, nq = cfg.d_model, cfg.num_queries
+        self.spec = spec
+        self.query_embed = Embedding(nq, d, spec)
+        self.reference_points = Embedding(nq, 4, spec)
+        self.presence_token = Embedding(1, d, spec) if cfg.presence_token else None
+        self.norm = LayerNorm(d, spec)
+        self.bbox_embed = MLP(d, d, 4, 3, spec, zero_init_last=True)
+        self.ref_point_head = MLP(2 * d, d, d, 2, spec)
+        self.rpb = BoxRPB(spec, cfg.dec_heads) if cfg.box_rpb != "none" else None
+        if cfg.presence_token:
+            self.presence_token_head = MLP(d, d, 1, 3, spec)
+            self.presence_token_out_norm = LayerNorm(d, spec)
+        self.layers = nn.ModuleList(DecoderLayer(spec) for _ in range(cfg.dec_layers))
+
+    def forward(self, memory, memory_pos, memory_text, text_mask, feat_hw) -> DecoderOutput:
+        cfg = self.spec.model
+        if self.rpb is None:
+            raise NotImplementedError("box_rpb='none' is not ported yet")
+        if not cfg.dec_separable_bias:
+            raise NotImplementedError("the dense boxRPB oracle is not ported")
+        dt = self.spec.dtype
+        b, d, nq = memory.shape[0], cfg.d_model, cfg.num_queries
+        tgt = self.query_embed()[None].expand(b, nq, d).to(dt)
+        ref = torch.sigmoid(self.reference_points().float())[None].expand(b, nq, 4)
+        presence = None
+        if self.presence_token is not None:
+            presence = self.presence_token()[None].expand(b, 1, d).to(dt)
+
+        hs, refs, coords, pres = [], [], [], []
+        pres_feats = None
+        for layer in self.layers:
+            query_pos = self.ref_point_head(gen_sineembed_for_position(ref, d))
+            dy, dx = self.rpb(ref, feat_hw)
+            if presence is not None:
+                # the presence row attends with zero bias
+                dy = torch.cat([torch.zeros_like(dy[:, :1]), dy], dim=1)
+                dx = torch.cat([torch.zeros_like(dx[:, :1]), dx], dim=1)
+            tgt, presence = layer(tgt, query_pos, memory, memory_pos, memory_text,
+                                  text_mask, (dy, dx, feat_hw), presence)
+            normed = self.norm(tgt)
+            delta = self.bbox_embed(normed).float()
+            new_ref = torch.sigmoid(delta + inverse_sigmoid(ref))
+            hs.append(normed)
+            refs.append(ref)
+            coords.append(new_ref)
+            ref = new_ref
+            if presence is not None:
+                logits = self.presence_token_head(self.presence_token_out_norm(presence))
+                pres.append(logits.squeeze(-1))
+                pres_feats = presence
+        return DecoderOutput(
+            hs=torch.stack(hs),
+            reference_boxes=torch.stack(refs),
+            pred_coords=torch.stack(coords),
+            presence_logits=torch.stack(pres) if pres else None,
+            presence_feats=pres_feats,
+        )

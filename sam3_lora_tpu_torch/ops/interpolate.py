@@ -1,0 +1,29 @@
+"""Feature-map resizing matching ``sam3_lora_tpu/ops/interpolate.py``."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """x: (..., H, W) -> (..., size), half-pixel bilinear without antialias,
+    computed in fp32."""
+    lead = x.shape[:-2]
+    y = F.interpolate(
+        x.float().reshape(-1, 1, *x.shape[-2:]), size=tuple(size),
+        mode="bilinear", align_corners=False,
+    )
+    return y.reshape(*lead, *size).to(x.dtype)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """x: (..., H, W) -> (..., size) with torch's index rule
+    src = floor(dst * in / out)."""
+    h_in, w_in = x.shape[-2:]
+    h_out, w_out = size
+    ys = torch.floor(torch.arange(h_out, device=x.device) * (h_in / h_out)).long()
+    xs = torch.floor(torch.arange(w_out, device=x.device) * (w_in / w_out)).long()
+    return x[..., ys, :][..., :, xs]

@@ -1,0 +1,132 @@
+"""Weight bridge from the JAX package's flat checkpoints.
+
+The JAX package saves parameters as a flat ``.npz`` whose keys are the
+'.'-joined Flax paths (``sam3_lora_tpu/utils/checkpoint.py``). The port's
+module tree carries the same names, so the bridge is a per-leaf layout
+change:
+
+* Linear ``kernel`` (in, out) -> ``weight`` (out, in);
+* Conv ``kernel`` (kh, kw, in, out), the patch embed's (p, p, c, D)
+  included -> ``weight`` (out, in, kh, kw);
+* MHA ``in_proj_weight`` (d, 3d) -> (3d, d);
+* ``lora_a`` (in, r) -> (r, in), ``lora_b`` (r, out) -> (out, r);
+* the scanned ViT groups ``scan_blocks_{g}.block.*`` (stacked on a leading
+  axis) -> ``blocks.{i}.*``, with the group map of the JAX ViT;
+* everything else (norms, embeddings, ``pos_embed``, the transposed-conv
+  ``weight`` already in torch layout) as it is.
+
+``load_jax_params`` then folds the rotate-half column permutation of the ViT
+qkv projection (which the JAX module applies at every call) into the q/k
+output channels of ``weight``, ``bias`` and ``lora_b``, once, at load.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.layers import LoRALinear
+
+_SCAN = re.compile(r"^(?:(.*)\.)?scan_blocks_(\d+)\.block\.(.*)$")
+
+
+def _unstack_scanned(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Group g of the JAX ViT holds the windowed run that ends just before
+    its global block (the g-th in order); a trailing group with no global
+    block starts after the last one."""
+    groups: Dict[str, Dict[int, int]] = {}
+    for name, arr in flat.items():
+        m = _SCAN.match(name)
+        if m:
+            prefix = f"{m.group(1)}." if m.group(1) else ""
+            groups.setdefault(prefix, {})[int(m.group(2))] = arr.shape[0]
+    if not groups:
+        return dict(flat)
+    out = {}
+    starts = {}
+    for prefix, lengths in groups.items():
+        glob = sorted({
+            int(m.group(1)) for name in flat
+            for m in [re.match(re.escape(prefix) + r"blocks\.(\d+)\.", name)] if m
+        })
+        for g, n in lengths.items():
+            start = glob[g] - n if g < len(glob) else (glob[-1] + 1 if glob else 0)
+            starts[(prefix, g)] = start
+    for name, arr in flat.items():
+        m = _SCAN.match(name)
+        if not m:
+            out[name] = arr
+            continue
+        prefix = f"{m.group(1)}." if m.group(1) else ""
+        g, rest = int(m.group(2)), m.group(3)
+        start = starts[(prefix, g)]
+        for j in range(arr.shape[0]):
+            out[f"{prefix}blocks.{start + j}.{rest}"] = arr[j]
+    return out
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX flat params (``lora_a``/``lora_b`` included) -> tensors keyed by
+    the port's ``state_dict`` names, in torch layout. The qkv permutation is
+    not applied here (it needs the module; see ``load_jax_params``)."""
+    out = {}
+    for name, arr in _unstack_scanned(flat).items():
+        arr = np.asarray(arr)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            name = name[: -len("kernel")] + "weight"
+            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        elif leaf in ("in_proj_weight", "lora_a", "lora_b"):
+            arr = arr.T
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def _fold_out_perm(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
+    for name, m in model.named_modules():
+        if isinstance(m, LoRALinear) and m.out_perm is not None:
+            for leaf in ("weight", "bias", "lora_b"):
+                key = f"{name}.{leaf}"
+                if key in tensors:  # rows are the output channels
+                    tensors[key] = tensors[key][m.out_perm]
+
+
+def load_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor], strict: bool = True) -> int:
+    """Copy torch-layout tensors (JAX channel order) into the model. Every
+    key must name a parameter; with ``strict`` every non-adapter parameter
+    must be given. Returns the number copied."""
+    tensors = dict(tensors)
+    _fold_out_perm(model, tensors)
+    params = dict(model.named_parameters())
+    extra = sorted(set(tensors) - set(params))
+    if extra:
+        raise KeyError(f"{len(extra)} checkpoint keys not in model (first: {extra[:5]})")
+    missing = sorted(
+        k for k in set(params) - set(tensors) if not k.endswith(("lora_a", "lora_b"))
+    )
+    if missing and strict:
+        raise KeyError(f"{len(missing)} model params missing from checkpoint (first: {missing[:5]})")
+    with torch.no_grad():
+        for k, t in tensors.items():
+            p = params[k]
+            if tuple(p.shape) != tuple(t.shape):
+                raise ValueError(f"shape mismatch for {k}: ckpt {tuple(t.shape)} vs model {tuple(p.shape)}")
+            p.copy_(t.to(dtype=p.dtype, device=p.device))
+    return len(tensors)
+
+
+def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray], strict: bool = True) -> int:
+    """Load JAX flat params (an init, a base checkpoint or both with
+    adapters) into the port's model; returns the number of tensors loaded."""
+    return load_tensors(model, params_from_jax(flat), strict=strict)
+
+
+def load_base_checkpoint(model: nn.Module, path: str, strict: bool = True) -> int:
+    """Load a converted base checkpoint ``.npz`` written by the JAX package."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    return load_jax_params(model, flat, strict=strict)
