@@ -1,8 +1,8 @@
-"""DETR decoder, eval path (port of ``sam3_lora_tpu/models/decoder.py``):
-learned queries and reference boxes, a presence token, text
-cross-attention, image cross-attention with the separable log-scale boxRPB
-bias, and iterative box refinement. DAC query doubling is training-only and
-not ported.
+"""DETR decoder (port of ``sam3_lora_tpu/models/decoder.py``): learned
+queries and reference boxes, a presence token, text cross-attention, image
+cross-attention with the separable log-scale boxRPB bias, iterative box
+refinement, and in training DAC query doubling (a second, one-to-many copy
+of the queries that skips the self-attention) and the layer dropouts.
 
 Presence-logit clamp: the reference calls ``logits.clamp(...)`` without
 assigning it, so no clamp is applied here either.
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, inverse_sigmoid
 from ..ops.posenc import gen_sineembed_for_position
-from .layers import MLP, Embedding, LayerNorm, LoRALinear, MultiHeadAttention, Spec
+from .layers import MLP, Dropout, Embedding, LayerNorm, LoRALinear, MultiHeadAttention, Spec
 
 
 class DecoderOutput(NamedTuple):
@@ -67,31 +67,40 @@ class DecoderLayer(nn.Module):
     def __init__(self, spec: Spec):
         super().__init__()
         cfg = spec.model
-        d, heads = cfg.d_model, cfg.dec_heads
-        self.self_attn = MultiHeadAttention(d, heads, spec)
+        d, heads, drop = cfg.d_model, cfg.dec_heads, cfg.dec_dropout
+        self.self_attn = MultiHeadAttention(d, heads, spec, dropout=drop)
         self.norm2 = LayerNorm(d, spec)
-        self.ca_text = MultiHeadAttention(d, heads, spec)
+        self.ca_text = MultiHeadAttention(d, heads, spec, dropout=drop)
         self.catext_norm = LayerNorm(d, spec)
-        self.cross_attn = MultiHeadAttention(d, heads, spec)
+        self.cross_attn = MultiHeadAttention(d, heads, spec, dropout=drop)
         self.norm1 = LayerNorm(d, spec)
         self.linear1 = LoRALinear(d, cfg.dec_ffn_dim, spec)
         self.linear2 = LoRALinear(cfg.dec_ffn_dim, d, spec)
         self.norm3 = LayerNorm(d, spec)
+        self.dropout = Dropout(drop, spec)  # each branch's and the FFN's
 
     def forward(self, tgt, query_pos, memory, memory_pos, memory_text, text_mask,
-                separable_bias, presence):
+                separable_bias, presence, dac: bool = False):
+        # with DAC the second half of the queries (one-to-many) skips the
+        # self-attention; the presence token joins the first half
+        n_o2o = tgt.shape[1] // 2 if dac else tgt.shape[1]
+        tgt_o2o, tgt_o2m = tgt[:, :n_o2o], tgt[:, n_o2o:]
+        pos_o2o = query_pos[:, :n_o2o]
         if presence is not None:
-            tgt = torch.cat([presence, tgt], dim=1)
-            query_pos = torch.cat([torch.zeros_like(presence), query_pos], dim=1)
-        qk = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(qk, qk, tgt))
+            tgt_o2o = torch.cat([presence, tgt_o2o], dim=1)
+            zero = torch.zeros_like(presence)
+            pos_o2o = torch.cat([zero, pos_o2o], dim=1)
+            query_pos = torch.cat([zero, query_pos], dim=1)
+        qk = tgt_o2o + pos_o2o
+        tgt_o2o = tgt_o2o + self.dropout(self.self_attn(qk, qk, tgt_o2o))
+        tgt = self.norm2(torch.cat([tgt_o2o, tgt_o2m], dim=1) if dac else tgt_o2o)
         ca = self.ca_text(tgt + query_pos, memory_text, memory_text, key_padding_mask=text_mask)
-        tgt = self.catext_norm(tgt + ca)
+        tgt = self.catext_norm(tgt + self.dropout(ca))
         ca = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
                              separable_bias=separable_bias)
-        tgt = self.norm1(tgt + ca)
-        y = self.linear2(F.relu(self.linear1(tgt)))
-        tgt = self.norm3(tgt + y)
+        tgt = self.norm1(tgt + self.dropout(ca))
+        y = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
+        tgt = self.norm3(tgt + self.dropout(y))
         if presence is not None:
             return tgt[:, 1:], tgt[:, :1]
         return tgt, None
@@ -115,22 +124,31 @@ class TransformerDecoder(nn.Module):
             self.presence_token_out_norm = LayerNorm(d, spec)
         self.layers = nn.ModuleList(DecoderLayer(spec) for _ in range(cfg.dec_layers))
 
-    def forward(self, memory, memory_pos, memory_text, text_mask, feat_hw) -> DecoderOutput:
+    def forward(self, memory, memory_pos, memory_text, text_mask, feat_hw,
+                apply_dac: bool = False) -> DecoderOutput:
         cfg = self.spec.model
         if self.rpb is None:
             raise NotImplementedError("box_rpb='none' is not ported yet")
         if not cfg.dec_separable_bias:
             raise NotImplementedError("the dense boxRPB oracle is not ported")
+        if self.training and cfg.dec_remat:
+            raise NotImplementedError("dec_remat is not ported")
         dt = self.spec.dtype
         b, d, nq = memory.shape[0], cfg.d_model, cfg.num_queries
         tgt = self.query_embed()[None].expand(b, nq, d).to(dt)
         ref = torch.sigmoid(self.reference_points().float())[None].expand(b, nq, 4)
+        if apply_dac:
+            tgt, ref = torch.cat([tgt, tgt], dim=1), torch.cat([ref, ref], dim=1)
         presence = None
         if self.presence_token is not None:
             presence = self.presence_token()[None].expand(b, 1, d).to(dt)
 
         hs, refs, coords, pres = [], [], [], []
         pres_feats = None
+        # as in the reference: the boxes recorded for the loss carry the
+        # gradient along the refinement chain; the box fed to the next layer
+        # is detached
+        ref_grad = ref
         for layer in self.layers:
             query_pos = self.ref_point_head(gen_sineembed_for_position(ref, d))
             dy, dx = self.rpb(ref, feat_hw)
@@ -139,14 +157,14 @@ class TransformerDecoder(nn.Module):
                 dy = torch.cat([torch.zeros_like(dy[:, :1]), dy], dim=1)
                 dx = torch.cat([torch.zeros_like(dx[:, :1]), dx], dim=1)
             tgt, presence = layer(tgt, query_pos, memory, memory_pos, memory_text,
-                                  text_mask, (dy, dx, feat_hw), presence)
+                                  text_mask, (dy, dx, feat_hw), presence, apply_dac)
             normed = self.norm(tgt)
             delta = self.bbox_embed(normed).float()
-            new_ref = torch.sigmoid(delta + inverse_sigmoid(ref))
             hs.append(normed)
-            refs.append(ref)
-            coords.append(new_ref)
-            ref = new_ref
+            refs.append(ref_grad)
+            coords.append(torch.sigmoid(delta + inverse_sigmoid(ref_grad)))
+            ref_grad = torch.sigmoid(delta + inverse_sigmoid(ref))
+            ref = ref_grad.detach()
             if presence is not None:
                 logits = self.presence_token_head(self.presence_token_out_norm(presence))
                 pres.append(logits.squeeze(-1))

@@ -1,10 +1,12 @@
 """Fusion (DETR) encoder and the shared encoder layer (port of
-``sam3_lora_tpu/models/fusion_encoder.py``, eval path).
+``sam3_lora_tpu/models/fusion_encoder.py``).
 
 Each layer runs pre-norm self-attention (position encodings added to q/k),
-cross-attention to the prompt sequence, and a relu FFN. Over the 5184 image
-tokens the self-attention is an unmasked long self-attention, which
-``MultiHeadAttention`` sends to ``long_attention_packed``.
+cross-attention to the prompt sequence, and a relu FFN, with dropout on each
+branch in training. Over the 5184 image tokens the self-attention is an
+unmasked long self-attention, which ``MultiHeadAttention`` sends to
+``long_attention_packed``. With ``enc_remat`` each fusion-encoder layer runs
+under ``checkpoint`` in training (the JAX ``nn.remat`` per layer).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import LayerNorm, LoRALinear, MultiHeadAttention, Spec
+from .layers import Dropout, LayerNorm, LoRALinear, MultiHeadAttention, Spec, checkpoint
 
 
 class EncoderLayer(nn.Module):
@@ -27,21 +29,24 @@ class EncoderLayer(nn.Module):
         d_model: int,
         heads: int,
         ffn_dim: int,
+        dropout: float,
         pos_enc_at_attn: bool,
         pos_enc_at_cross_attn_keys: bool,
         pos_enc_at_cross_attn_queries: bool,
     ):
         super().__init__()
+        self.spec = spec
         self.pos_enc_at_attn = pos_enc_at_attn
         self.pos_enc_at_cross_attn_keys = pos_enc_at_cross_attn_keys
         self.pos_enc_at_cross_attn_queries = pos_enc_at_cross_attn_queries
         self.norm1 = LayerNorm(d_model, spec)
-        self.self_attn = MultiHeadAttention(d_model, heads, spec)
+        self.self_attn = MultiHeadAttention(d_model, heads, spec, dropout=dropout)
         self.norm2 = LayerNorm(d_model, spec)
-        self.cross_attn_image = MultiHeadAttention(d_model, heads, spec)
+        self.cross_attn_image = MultiHeadAttention(d_model, heads, spec, dropout=dropout)
         self.norm3 = LayerNorm(d_model, spec)
         self.linear1 = LoRALinear(d_model, ffn_dim, spec)
         self.linear2 = LoRALinear(ffn_dim, d_model, spec)
+        self.dropout = Dropout(dropout, spec)  # the FFN's and each branch's
 
     def forward(
         self,
@@ -54,16 +59,18 @@ class EncoderLayer(nn.Module):
     ) -> torch.Tensor:
         tgt2 = self.norm1(tgt)
         qk = tgt2 + query_pos if (self.pos_enc_at_attn and query_pos is not None) else tgt2
-        tgt = tgt + self.self_attn(qk, qk, tgt2, key_padding_mask=tgt_key_padding_mask)
+        tgt2 = self.self_attn(qk, qk, tgt2, key_padding_mask=tgt_key_padding_mask)
+        tgt = tgt + self.dropout(tgt2)
 
         tgt2 = self.norm2(tgt)
         q = (tgt2 + query_pos
              if (self.pos_enc_at_cross_attn_queries and query_pos is not None) else tgt2)
         k = memory + pos if (self.pos_enc_at_cross_attn_keys and pos is not None) else memory
-        tgt = tgt + self.cross_attn_image(q, k, memory, key_padding_mask=memory_key_padding_mask)
+        tgt2 = self.cross_attn_image(q, k, memory, key_padding_mask=memory_key_padding_mask)
+        tgt = tgt + self.dropout(tgt2)
 
-        tgt2 = self.linear2(F.relu(self.linear1(self.norm3(tgt))))
-        return tgt + tgt2
+        tgt2 = self.linear2(self.dropout(F.relu(self.linear1(self.norm3(tgt)))))
+        return tgt + self.dropout(tgt2)
 
 
 class TransformerEncoderFusion(nn.Module):
@@ -73,9 +80,10 @@ class TransformerEncoderFusion(nn.Module):
     def __init__(self, spec: Spec):
         super().__init__()
         cfg = spec.model
+        self.spec = spec
         self.layers = nn.ModuleList(
             EncoderLayer(
-                spec, cfg.d_model, cfg.enc_heads, cfg.enc_ffn_dim,
+                spec, cfg.d_model, cfg.enc_heads, cfg.enc_ffn_dim, cfg.enc_dropout,
                 pos_enc_at_attn=True,
                 pos_enc_at_cross_attn_keys=False,
                 pos_enc_at_cross_attn_queries=False,
@@ -84,7 +92,12 @@ class TransformerEncoderFusion(nn.Module):
         )
 
     def forward(self, src, src_pos, prompt, prompt_key_padding_mask):
+        cfg = self.spec.model
+        if self.training and cfg.enc_remat_ffn and not cfg.enc_remat:
+            raise NotImplementedError("enc_remat_ffn (remat of the FFN alone) is not ported")
+        remat = self.training and torch.is_grad_enabled() and cfg.enc_remat
         out = src
         for layer in self.layers:
-            out = layer(out, prompt, src_pos, None, None, prompt_key_padding_mask)
+            args = (out, prompt, src_pos, None, None, prompt_key_padding_mask)
+            out = checkpoint(layer, layer, *args) if remat else layer(*args)
         return out

@@ -64,7 +64,7 @@ class GeometryEncoder(nn.Module):
         self.norm = LayerNorm(d, spec)
         self.encode = nn.ModuleList(
             EncoderLayer(
-                spec, d, cfg.enc_heads, cfg.enc_ffn_dim,
+                spec, d, cfg.enc_heads, cfg.enc_ffn_dim, cfg.enc_dropout,
                 pos_enc_at_attn=False,
                 pos_enc_at_cross_attn_keys=True,
                 pos_enc_at_cross_attn_queries=False,

@@ -10,10 +10,17 @@ Parameters are created empty, in ``ModelConfig.param_dtype`` on
 ``torch.Generator`` through each module's ``init_parameters``, which touches
 only the module's own parameters. Compute runs in ``ModelConfig.dtype``, with
 the fp32 islands of the JAX package (LayerNorm/GroupNorm statistics, softmax).
+
+Training mode (``model.train()``, the JAX modules' ``train=True``) turns on
+the JAX package's dropouts. Their masks come from ``Spec.rng``, one
+``DropoutRNG`` per model, seeded by the trainer; a block run under
+``checkpoint`` draws its masks from a generator re-seeded inside the block
+from a seed drawn outside it, so the backward's replay draws the same masks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
@@ -21,6 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..config import LoRAConfig, ModelConfig
 
@@ -29,13 +37,64 @@ from ..ops.long_attention import long_attention_packed
 from ..ops.rpb_attention import separable_bias_attention
 
 
+class DropoutRNG:
+    """A model's source of dropout masks: a host generator that hands out
+    seeds, and the generator on the activations' device that masks are drawn
+    from. Unseeded, it serves no masks (a rate above zero in training then
+    raises) and ``fork`` is a no-op."""
+
+    def __init__(self):
+        self.host: Optional[torch.Generator] = None
+        self.device_generator: Optional[torch.Generator] = None
+
+    def seed(self, seed: int, device) -> None:
+        self.host, self.device_generator = self._generators(seed, device)
+
+    @staticmethod
+    def _generator(seed: int, device) -> torch.Generator:
+        return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+    def _generators(self, seed: int, device):
+        host = torch.Generator().manual_seed(seed)
+        seed2 = int(torch.randint(0, 2**62, (1,), generator=host).item())
+        return host, self._generator(seed2, device)
+
+    def next_seed(self) -> Optional[int]:
+        if self.host is None:
+            return None
+        return int(torch.randint(0, 2**62, (1,), generator=self.host).item())
+
+    @contextlib.contextmanager
+    def fork(self, seed: Optional[int], device):
+        """Inside the block, draw seeds and masks from generators seeded with
+        ``seed``; the outer streams are left where they were."""
+        if seed is None:
+            yield
+            return
+        outer = self.host, self.device_generator
+        self.host, self.device_generator = self._generators(seed, device)
+        try:
+            yield
+        finally:
+            self.host, self.device_generator = outer
+
+    def keep_mask(self, shape, keep: float, device) -> torch.Tensor:
+        g = self.device_generator
+        if g is None:
+            raise RuntimeError("dropout in training needs a seeded DropoutRNG: "
+                               "call model.seed_dropout(seed) first")
+        return torch.rand(shape, generator=g, device=device) < keep
+
+
 @dataclasses.dataclass(frozen=True)
 class Spec:
-    """Build-time spec threaded through every module."""
+    """Build-time spec threaded through every module; ``rng`` is the model's
+    dropout randomness (shared by every module built from this spec)."""
 
     model: ModelConfig
     lora: Optional[LoRAConfig] = None
     device: Optional[torch.device] = None
+    rng: DropoutRNG = dataclasses.field(default_factory=DropoutRNG, compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -66,6 +125,60 @@ def trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
     the result has standard deviation ``std``."""
     s = std / 0.87962566103423978
     nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s, generator=g)
+
+
+def dropout(x: torch.Tensor, rate: float, spec: Spec, shape=None) -> torch.Tensor:
+    """Inverted dropout (the JAX ``jnp.where(mask, x / keep, 0)``), with a
+    mask of ``shape`` (default: x's) broadcast over x. The caller decides
+    whether it is training."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = spec.rng.keep_mask(x.shape if shape is None else shape, keep, x.device)
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """Dropout at ``rate`` in training mode, identity in eval."""
+
+    def __init__(self, rate: float, spec: Spec):
+        super().__init__()
+        self.rate, self.spec = rate, spec
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.spec) if self.training else x
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (timm DropPath): one keep draw per row of
+    the leading axis, in training mode."""
+
+    def __init__(self, rate: float, spec: Spec):
+        super().__init__()
+        self.rate, self.spec = rate, spec
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.rate, self.spec, shape=(x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def checkpoint(module: nn.Module, fn, *args):
+    """Run ``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    only its inputs are saved and the backward replays it. Dropout inside
+    draws from a generator re-seeded from a seed drawn here, outside the
+    replayed region, so the replay draws the same masks."""
+    rng = module.spec.rng
+    seed = rng.next_seed()
+    device = next(module.parameters()).device
+
+    def run(*a):
+        with rng.fork(seed, device):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False
+    )
 
 
 def lecun_bound(fan_in: int) -> float:
@@ -124,9 +237,12 @@ class LoRALinear(nn.Module):
         x = x.to(dt)
         y = F.linear(x, self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
         if self.lora_a is not None:
+            xin = x
+            if self.training and self.spec.lora is not None:
+                xin = dropout(x, self.spec.lora.dropout, self.spec)  # adapter input only
             # adapters are stored fp32; the skinny products run in the compute
             # dtype with fp32 accumulation, as in the JAX module
-            h = F.linear(x, self.lora_a.to(dt))
+            h = F.linear(xin, self.lora_a.to(dt))
             delta = F.linear(h.float(), self.lora_b.to(dt).float())
             y = y + (delta * self.scaling).to(y.dtype)
         return y
@@ -215,7 +331,7 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    """torch nn.MultiheadAttention-compatible MHA, batch-first, eval path.
+    """torch nn.MultiheadAttention-compatible MHA, batch-first.
 
     Routing: an unmasked, unbiased self-attention of at least
     ``flash_attention_min_seq`` tokens (the fusion encoder's 5184 image
@@ -223,12 +339,18 @@ class MultiHeadAttention(nn.Module):
     in-projection as packed (B, L, H*dh) operands. The decoder's boxRPB
     cross-attention goes to ``separable_bias_attention``; everything else to
     the plain ``dot_product_attention``.
+
+    Dropout in training, as in the JAX module: on the attention probabilities
+    for short sequences; in-loop on the probabilities of the separable-bias
+    path; on the attention *output* where both sequences are long (the fused
+    path never forms the probabilities).
     """
 
-    def __init__(self, embed_dim: int, num_heads: int, spec: Spec):
+    def __init__(self, embed_dim: int, num_heads: int, spec: Spec, dropout: float = 0.0):
         super().__init__()
         self.spec = spec
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.dropout = dropout
         self.in_proj_weight = spec.empty(3 * embed_dim, embed_dim)
         self.in_proj_bias = spec.empty(3 * embed_dim)
         self.out_proj = LoRALinear(embed_dim, embed_dim, spec)
@@ -256,30 +378,39 @@ class MultiHeadAttention(nn.Module):
         head_dim = d // self.num_heads
         mcfg = self.spec.model
         lq, lk = q.shape[1], k.shape[1]
+        drop = self.dropout if self.training else 0.0
+        long_seq = (mcfg.use_flash_attention and lq >= mcfg.flash_attention_min_seq
+                    and lk >= mcfg.flash_attention_min_seq)
         if (
-            mcfg.use_flash_attention
-            and lq >= mcfg.flash_attention_min_seq
+            long_seq
             and lk == lq
             and attn_bias is None
             and key_padding_mask is None
             and separable_bias is None
         ):
             out = long_attention_packed(q, k, v, head_dim ** -0.5, head_dim)
-            return self.out_proj(out)
+            return self.out_proj(dropout(out, drop, self.spec))
         qh, kh, vh = (split_heads(t, self.num_heads) for t in (q, k, v))
         if separable_bias is not None:
             dy, dx, grid_hw = separable_bias
-            out = separable_bias_attention(qh, kh, vh, dy, dx, grid_hw=grid_hw)
-        else:
+            out = separable_bias_attention(qh, kh, vh, dy, dx, grid_hw=grid_hw,
+                                           dropout=drop, rng=self.spec.rng)
+        elif long_seq:
             out = dot_product_attention(
                 qh, kh, vh, bias=attn_bias, key_padding_mask=key_padding_mask
+            )
+            out = dropout(out, drop, self.spec)
+        else:
+            out = dot_product_attention(
+                qh, kh, vh, bias=attn_bias, key_padding_mask=key_padding_mask,
+                dropout=drop, rng=self.spec.rng,
             )
         return self.out_proj(merge_heads(out))
 
 
 class MLP(nn.Module):
-    """Reference model_misc.MLP: relu between layers, optional residual and
-    output LayerNorm (dropout is off in eval)."""
+    """Reference model_misc.MLP: relu between layers, dropout on the hidden
+    activations in training, optional residual and output LayerNorm."""
 
     def __init__(
         self,
@@ -288,11 +419,13 @@ class MLP(nn.Module):
         output_dim: int,
         num_layers: int,
         spec: Spec,
+        dropout: float = 0.0,
         residual: bool = False,
         out_norm: bool = False,
         zero_init_last: bool = False,
     ):
         super().__init__()
+        self.drop = Dropout(dropout, spec)
         dims_in = [in_dim] + [hidden_dim] * (num_layers - 1)
         dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
@@ -307,7 +440,7 @@ class MLP(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:
-                x = F.relu(x)
+                x = self.drop(F.relu(x))
         if self.residual:
             x = x + orig
         if self.out_norm is not None:

@@ -3,13 +3,18 @@ by the reference's name matching, and adapter-only ``.npz`` IO in the JAX
 package's format, so adapter files move between the two packages.
 
 An adapter file holds ``<module>.lora_a`` (in, r) and ``<module>.lora_b``
-(r, out) in the JAX layout and channel order. Loading also takes the JAX
-package's scanned ViT naming (``scan_blocks_{g}.block.*``, stacked).
+(r, out) in the JAX layout and channel order, under the JAX model's names:
+with ``vit_scan_blocks`` (the default) the windowed ViT blocks' adapters are
+stacked per scanned group (``scan_blocks_{g}.block.*``), as the JAX trainer
+writes them. Loading takes either naming.
+
+For training, ``trainable_parameters`` freezes the base and returns the
+adapters, the only parameters that take a gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -50,9 +55,25 @@ def lora_state(model: nn.Module) -> Dict[str, np.ndarray]:
     return out
 
 
+def trainable_parameters(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
+    """Freeze every parameter but the adapters (``lora_a``, ``lora_b``);
+    returns the adapters by name, in module order."""
+    out = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(name.endswith(LORA_LEAF_NAMES))
+        if p.requires_grad:
+            out.append((name, p))
+    return out
+
+
 def save_lora_weights(model: nn.Module, path: str) -> int:
-    """Save only the adapter tensors as .npz; returns the number saved."""
+    """Save only the adapter tensors as .npz, under the JAX model's names;
+    returns the number of arrays saved."""
+    from ..utils.checkpoint import stack_scanned
+
     state = lora_state(model)
+    if model.spec.model.vit_scan_blocks:
+        state = stack_scanned(state, model.spec.model)
     np.savez(path, **state)
     return len(state)
 

@@ -27,7 +27,9 @@ class DotProductScoring(nn.Module):
         cfg = spec.model
         d = cfg.d_model
         self.d, self.clamp = d, cfg.score_clamp
-        self.prompt_mlp = MLP(d, cfg.score_mlp_hidden, d, 2, spec, residual=True, out_norm=True)
+        # dropout 0.1 on the hidden layer in training, as in the JAX head
+        self.prompt_mlp = MLP(d, cfg.score_mlp_hidden, d, 2, spec, dropout=0.1,
+                              residual=True, out_norm=True)
         self.prompt_proj = LoRALinear(d, d, spec)
         self.hs_proj = LoRALinear(d, d, spec)
 

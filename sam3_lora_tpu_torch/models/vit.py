@@ -10,6 +10,12 @@ RoPE is 2D axial in rotate-half layout: the qkv projection's q/k output
 channels were permuted at load (``LoRALinear.out_perm``) so each head's
 channels are (even pair-members | odd pair-members). Global blocks stretch
 the 24x24 RoPE grid over 72x72 (``scale_pos`` = 24/72).
+
+Training: stochastic depth per block (rates linear in depth up to
+``vit_drop_path_rate``) on both residual branches, and the ``windows_only``
+remat policy of the JAX ViT: the windowed blocks run under ``checkpoint``
+(the backward replays them from their inputs), the global blocks keep their
+activations.
 """
 
 from __future__ import annotations
@@ -21,11 +27,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.long_attention import long_attention_rope_packed
+from ..ops.long_attention import long_attention_rope_packed_qkv
 from ..ops.rope import compute_axial_freqs, rope_half_perm
-from ..ops.window_attention import window_attention_rope_packed
+from ..ops.window_attention import window_attention_rope_packed_qkv
 from ..ops.windows import window_partition, window_unpartition
-from .layers import Conv2d, LayerNorm, LoRALinear, Spec, trunc_normal_
+from .layers import Conv2d, DropPath, LayerNorm, LoRALinear, Spec, checkpoint, trunc_normal_
 
 
 def qkv_out_perm(dim: int, heads: int) -> np.ndarray:
@@ -73,14 +79,13 @@ class Attention(nn.Module):
         b, h, w, _ = x.shape
         d = self.dim
         qkv = self.qkv(x.reshape(b, h * w, d))
-        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+        # the packed qkv goes in whole, so its gradient comes back as one tensor
         scale = self.head_dim ** -0.5
         if self.window:
-            out = window_attention_rope_packed(q, k, v, scale, self.rope_cos, self.rope_sin)
+            out = window_attention_rope_packed_qkv(qkv, scale, self.rope_cos, self.rope_sin)
         else:
-            out = long_attention_rope_packed(
-                q, k, v, scale, self.head_dim, self.rope_cos, self.rope_sin
-            )
+            out = long_attention_rope_packed_qkv(qkv, scale, self.head_dim, self.rope_cos,
+                                                 self.rope_sin)
         return self.proj(out).reshape(b, h, w, d)
 
 
@@ -97,11 +102,13 @@ class TimmMlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, spec: Spec, window_size: int):
+    def __init__(self, spec: Spec, window_size: int, drop_path: float = 0.0):
         super().__init__()
         cfg = spec.model
         feat = cfg.feat_size
+        self.spec = spec
         self.window_size = window_size
+        self.drop_path = DropPath(drop_path, spec)
         if window_size > 0:
             input_size, scale_pos = (window_size, window_size), 1.0
         else:
@@ -121,8 +128,8 @@ class Block(nn.Module):
         y = self.attn(y)
         if ws > 0:
             y = window_unpartition(y, ws, pad_hw, hw)
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(y)
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
 
 class ViT(nn.Module):
@@ -138,8 +145,10 @@ class ViT(nn.Module):
             pre = cfg.vit_pretrain_img_size // cfg.patch_size
             self.pos_embed = spec.empty(1, pre * pre + 1, cfg.vit_dim)  # +1 cls slot
         self.ln_pre = LayerNorm(cfg.vit_dim, spec) if cfg.vit_ln_pre else None
+        rates = np.linspace(0.0, cfg.vit_drop_path_rate, cfg.vit_depth)
         self.blocks = nn.ModuleList(
-            Block(spec, 0 if i in cfg.vit_global_blocks else cfg.vit_window_size)
+            Block(spec, 0 if i in cfg.vit_global_blocks else cfg.vit_window_size,
+                  float(rates[i]))
             for i in range(cfg.vit_depth)
         )
 
@@ -160,6 +169,7 @@ class ViT(nn.Module):
         return resize_bilinear(grid.permute(0, 3, 1, 2), (feat, feat)).permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.spec.model
         dt = self.spec.dtype
         if x.dtype == torch.uint8:
             # exactly (u/255 - 0.5)/0.5 for the production mean = std = 0.5
@@ -169,6 +179,10 @@ class ViT(nn.Module):
             x = x + self._abs_pos().to(x.dtype)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
+        remat = self.training and torch.is_grad_enabled()
+        if remat and cfg.vit_remat_policy != "windows_only":
+            raise NotImplementedError(
+                f"vit_remat_policy={cfg.vit_remat_policy!r} is not ported; use 'windows_only'")
         for blk in self.blocks:
-            x = blk(x)
+            x = checkpoint(blk, blk, x) if remat and blk.window_size > 0 else blk(x)
         return x.permute(0, 3, 1, 2)

@@ -1,7 +1,9 @@
 """Plain scaled dot-product attention (port of the XLA form of
 ``sam3_lora_tpu/ops/attention.py::dot_product_attention``): fp32 scores and
 softmax, an additive bias, a key-padding mask with True = padding filled
-with -1e9, and plain einsums. q, k, v are (B, H, L, Dh)."""
+with -1e9, optional dropout on the probabilities (torch MHA semantics, the
+JAX MHA's short-sequence training path), and plain einsums. q, k, v are
+(B, H, L, Dh)."""
 
 from __future__ import annotations
 
@@ -34,13 +36,19 @@ def dot_product_attention(
     bias: Optional[torch.Tensor] = None,
     key_padding_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    dropout: float = 0.0,
+    rng=None,
 ) -> torch.Tensor:
+    """``rng`` (a ``models.layers.DropoutRNG``) draws the dropout mask."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     full_bias = make_attention_bias(key_padding_mask, bias)
     if full_bias is not None:
         logits = logits + full_bias
     probs = torch.softmax(logits, dim=-1)
+    if dropout > 0.0:
+        keep = 1.0 - dropout
+        probs = torch.where(rng.keep_mask(probs.shape, keep, probs.device), probs / keep, 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 

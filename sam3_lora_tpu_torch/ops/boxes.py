@@ -1,7 +1,10 @@
-"""Box coordinate ops used by the serving path (port of
-``sam3_lora_tpu/ops/boxes.py``)."""
+"""Box coordinate ops (port of ``sam3_lora_tpu/ops/boxes.py``): format
+conversion, pairwise and diagonal (matched-pair) IoU and generalized IoU of
+xyxy boxes, broadcasting over leading dims."""
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -14,3 +17,55 @@ def box_cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     x = x.clamp(0.0, 1.0)
     return torch.log(x.clamp(min=eps) / (1.0 - x).clamp(min=eps))
+
+
+def box_area(b: torch.Tensor) -> torch.Tensor:
+    """Area of xyxy boxes: (..., 4) -> (...)."""
+    return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise IoU of xyxy boxes: (..., N, 4) x (..., M, 4) -> (iou, union),
+    each (..., N, M)."""
+    area1, area2 = box_area(boxes1), box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union.clamp(min=1e-9), union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes -> (..., N, M)."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)
+
+
+def _diag_inter_union(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter, box_area(boxes1) + box_area(boxes2) - inter
+
+
+def fast_diag_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU of matched xyxy box pairs: (..., 4) x (..., 4) -> (...)."""
+    inter, union = _diag_inter_union(boxes1, boxes2)
+    return inter / union.clamp(min=1e-9)
+
+
+def fast_diag_generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """GIoU of matched xyxy box pairs: (..., 4) x (..., 4) -> (...)."""
+    inter, union = _diag_inter_union(boxes1, boxes2)
+    iou = inter / union.clamp(min=1e-9)
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)

@@ -46,3 +46,13 @@ def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> to
     xe, xo = xf[..., :h], xf[..., h:]
     out = torch.cat([xe * cos - xo * sin, xe * sin + xo * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope_half_inv(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The transpose of ``apply_rope_half`` (rotation by the negated angles):
+    carries a gradient of rotated q/k back to the unrotated input."""
+    h = x.shape[-1] // 2
+    xf = x.float()
+    xe, xo = xf[..., :h], xf[..., h:]
+    out = torch.cat([xe * cos + xo * sin, xo * cos - xe * sin], dim=-1)
+    return out.to(x.dtype)

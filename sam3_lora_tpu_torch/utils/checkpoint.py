@@ -11,7 +11,8 @@ change:
 * MHA ``in_proj_weight`` (d, 3d) -> (3d, d);
 * ``lora_a`` (in, r) -> (r, in), ``lora_b`` (r, out) -> (out, r);
 * the scanned ViT groups ``scan_blocks_{g}.block.*`` (stacked on a leading
-  axis) -> ``blocks.{i}.*``, with the group map of the JAX ViT;
+  axis) -> ``blocks.{i}.*``, with the group map of the JAX ViT
+  (``stack_scanned`` goes the other way, for saving adapters);
 * everything else (norms, embeddings, ``pos_embed``, the transposed-conv
   ``weight`` already in torch layout) as it is.
 
@@ -66,6 +67,44 @@ def _unstack_scanned(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         start = starts[(prefix, g)]
         for j in range(arr.shape[0]):
             out[f"{prefix}blocks.{start + j}.{rest}"] = arr[j]
+    return out
+
+
+_TRUNK_BLOCK = re.compile(r"^(.*trunk\.)blocks\.(\d+)\.(.*)$")
+
+
+def scan_groups(cfg):
+    """The JAX ViT's scanned groups: (windowed run, following global block or
+    None) pairs, e.g. depth 32 / globals (7, 15, 23, 31) -> [((0..6), 7),
+    ((8..14), 15), ...]."""
+    groups, run = [], []
+    for i in range(cfg.vit_depth):
+        if i in cfg.vit_global_blocks:
+            groups.append((tuple(run), i))
+            run = []
+        else:
+            run.append(i)
+    if run:
+        groups.append((tuple(run), None))
+    return groups
+
+
+def stack_scanned(flat: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
+    """Flat JAX-layout arrays named ``...trunk.blocks.{i}.*`` -> the scanned
+    naming of the JAX ViT (``...trunk.scan_blocks_{g}.block.*``, the windowed
+    run of group g stacked on a leading axis); global blocks keep their
+    names."""
+    where = {i: (g, j) for g, (run, _) in enumerate(scan_groups(cfg)) for j, i in enumerate(run)}
+    out, stacks = {}, {}
+    for name, arr in flat.items():
+        m = _TRUNK_BLOCK.match(name)
+        if m is None or int(m.group(2)) not in where:
+            out[name] = arr
+            continue
+        g, j = where[int(m.group(2))]
+        stacks.setdefault(f"{m.group(1)}scan_blocks_{g}.block.{m.group(3)}", {})[j] = arr
+    for name, parts in stacks.items():
+        out[name] = np.stack([parts[j] for j in sorted(parts)])
     return out
 
 

@@ -1,6 +1,8 @@
-"""The port's CUDA attention kernel on the card: each entry point against
-its plain PyTorch version at small and ragged shapes, strided operands, and
-the wrapper's input checks. These need an NVIDIA GPU with nvcc and skip
+"""The port's CUDA attention kernels on the card: each entry point's forward
+and the backward kernels against their plain PyTorch versions at small and
+ragged shapes, strided operands, the autograd Functions (outputs carry a
+``grad_fn`` and their backward launches the kernel), and the wrapper's
+input checks. These need an NVIDIA GPU with nvcc and skip
 elsewhere; on a machine with a GPU run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance: max |kernel - plain| <= 2e-2 * max |plain|, as in chip_smoke.py
@@ -11,6 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from sam3_lora_tpu_torch.ops.attention_kernel import (
+    attend_qkv,
+    attention_packed_bwd_cuda,
+    attention_packed_bwd_plain,
+    attention_packed_cuda,
+)
 from sam3_lora_tpu_torch.ops.long_attention import (
     long_attention_packed,
     long_attention_packed_plain,
@@ -85,3 +93,67 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
         long_attention_packed(q[:, :, 1:97], k[:, :, 1:97], v[:, :, 1:97], 0.1, 32)
     with pytest.raises(ValueError, match="shape"):
         long_attention_packed(q, k[:, :8], v, 0.1, 32)
+
+
+@pytest.mark.parametrize("l", [1, 37, 77, 100, 576])
+@pytest.mark.parametrize("p,dh,rope", [(2, 64, True), (2, 64, False), (4, 32, True),
+                                       (4, 32, False), (16, 64, True), (8, 32, False)])
+def test_backward_kernels_match_plain(gen, l, p, dh, rope):
+    q, k, v = _qkv(gen, 2, l, p * dh)
+    cos, sin = _tables(l, dh) if rope else (None, None)
+    o, lse = attention_packed_cuda(q, k, v, dh ** -0.5, dh, cos, sin, with_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    grads = attention_packed_bwd_cuda(q, k, v, o, lse, do, dh ** -0.5, dh, cos, sin)
+    torch.cuda.synchronize()
+    refs = attention_packed_bwd_plain(q, k, v, o, do, dh ** -0.5, dh, cos, sin)
+    if l == 1:
+        # one key: P = 1, so dS = 0, and dq, dk are rounding noise on both
+        # sides; they are held to the bound at the gradient's scale (max |dv|)
+        scale = refs[2].float().abs().max().item()
+        for g in grads[:2]:
+            assert g.float().abs().max().item() <= RTOL * scale
+        _assert_matches(grads[2], refs[2])
+    else:
+        for g, r in zip(grads, refs):
+            _assert_matches(g, r)
+
+
+@pytest.mark.parametrize("which", ["window", "long_rope", "long"])
+def test_outputs_carry_grad_fn_and_backward_launches_the_kernel(gen, which):
+    dh, p, l = (64, 2, 77) if which != "long" else (32, 4, 77)
+    q, k, v = (t.contiguous().requires_grad_(True) for t in _qkv(gen, 2, l, p * dh))
+    cos, sin = _tables(l, dh)
+    entry, call = {
+        "window": (window_attention_rope_packed,
+                   lambda: window_attention_rope_packed(q, k, v, dh ** -0.5, cos, sin)),
+        "long_rope": (long_attention_rope_packed,
+                      lambda: long_attention_rope_packed(q, k, v, dh ** -0.5, dh, cos, sin)),
+        "long": (long_attention_packed, lambda: long_attention_packed(q, k, v, dh ** -0.5, dh)),
+    }[which]
+    fwd, bwd = entry.launches, entry.bwd_launches
+    out = call()
+    assert out.requires_grad and out.grad_fn is not None
+    assert entry.launches == fwd + 1
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert entry.bwd_launches == bwd + 1
+    for t in (q, k, v):
+        assert torch.isfinite(t.grad.float()).all() and t.grad.float().abs().max() > 0
+
+
+def test_packed_qkv_gradient_is_one_tensor(gen):
+    dh, p, l = 64, 16, 100
+    qkv = torch.randn(3, l, 3 * p * dh, generator=gen, device="cuda").to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    cos, sin = _tables(l, dh)
+    bwd = window_attention_rope_packed.bwd_launches
+    out = attend_qkv(window_attention_rope_packed, qkv, dh ** -0.5, dh, cos, sin)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert window_attention_rope_packed.bwd_launches == bwd + 1
+    q, k, v = qkv.detach().chunk(3, dim=-1)
+    refs = attention_packed_bwd_plain(q, k, v, out.detach(), do, dh ** -0.5, dh, cos, sin)
+    for g, r in zip(qkv.grad.chunk(3, dim=-1), refs):
+        _assert_matches(g, r)

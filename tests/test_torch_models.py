@@ -47,7 +47,7 @@ def _pair(jax_cls, port_cls, *args, cfg=CFG, **kwargs):
     pm = port_cls(Spec(model=cfg, lora=LORA))
     apply_lora(pm, LORA)
     load_jax_params(pm, flat)
-    return jm, params, pm
+    return jm, params, pm.eval()  # the JAX side runs train=False
 
 
 def _j(x):

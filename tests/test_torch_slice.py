@@ -159,8 +159,8 @@ def test_wide_config_runs_the_kernel_entry_points(monkeypatch):
 
         monkeypatch.setattr(mod, name, wrapped)
 
-    spy(port_vit, "window_attention_rope_packed", "K1")
-    spy(port_vit, "long_attention_rope_packed", "K2")
+    spy(port_vit, "window_attention_rope_packed_qkv", "K1")
+    spy(port_vit, "long_attention_rope_packed_qkv", "K2")
     spy(port_layers, "long_attention_packed", "K3")
     cfg = tiny_model_config(**WIDE)
     out, ref, *_ = _run_forward(cfg)
