@@ -1,7 +1,9 @@
 """Inference CLI — ``python -m sam3_lora_tpu_torch.cli.infer --config <yaml>
---image x.jpg --prompt crack`` (same flags as ``sam3_lora_tpu.cli.infer``).
-Needs PyYAML for the config, PIL to read the image and matplotlib to save
-the overlay."""
+--image x.jpg --prompt crack [--device cuda]`` (the flags of
+``sam3_lora_tpu.cli.infer``, and ``--device``). The YAML's ``model:``
+section takes ``tiny``, ``dtype``, ``base_checkpoint``, ``base_quant`` and
+``base_quant_min_dim``. Needs PyYAML for the config, PIL to read the image
+and matplotlib to save the overlay."""
 
 from __future__ import annotations
 
@@ -27,23 +29,18 @@ def main(argv=None):
     parser.add_argument(
         "--no-lora", action="store_true", help="Run the base model without adapters"
     )
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    from ..config import (
-        LoRAConfig, ModelConfig, TrainConfig, load_yaml_config, tiny_model_config,
-    )
-
+    from ..config import LoRAConfig, TrainConfig, load_yaml_config
     from ..inference import SAM3LoRAInference
+    from .train import model_config_from_yaml
 
     cfg = load_yaml_config(args.config)
     lcfg = None if args.no_lora else LoRAConfig.from_dict(cfg.get("lora", {}))
     tcfg = TrainConfig.from_yaml_dict(cfg)
     msec = cfg.get("model", {}) or {}
-    mcfg = (
-        tiny_model_config()
-        if msec.get("tiny")
-        else ModelConfig(dtype=str(msec.get("dtype", "bfloat16")))
-    )
+    mcfg = model_config_from_yaml(msec)
 
     weights = args.weights
     if weights is None and not args.no_lora:
@@ -64,6 +61,7 @@ def main(argv=None):
         weights=weights,
         base_checkpoint=msec.get("base_checkpoint"),
         threshold=args.threshold,
+        device=args.device,
     )
     results = engine.predict(args.image, args.prompt)
     for res in results.values():

@@ -1,8 +1,10 @@
 """Train CLI — ``python -m sam3_lora_tpu_torch.cli.train --config x.yaml
 [--num-epochs N] [--device cuda]``, with the YAML surface of
 ``sam3_lora_tpu.cli.train``: ``model:`` (``tiny``, ``dtype``,
-``base_checkpoint``), ``lora:``, ``training:`` and ``output:``. PyYAML reads
-the config and PIL decodes the dataset's images; nothing else needs them.
+``base_checkpoint``, and here also ``base_quant`` and
+``base_quant_min_dim``), ``lora:``, ``training:`` and ``output:``. PyYAML
+reads the config and PIL decodes the dataset's images; nothing else needs
+them.
 """
 
 from __future__ import annotations
@@ -30,17 +32,28 @@ def setup_logging(output_dir: str) -> logging.Logger:
     return logger
 
 
+def model_config_from_yaml(msec: dict):
+    """The YAML's ``model:`` section -> ModelConfig: ``tiny: true`` starts
+    from ``tiny_model_config()``, else the full model in ``dtype`` (default
+    bfloat16); ``base_quant`` and ``base_quant_min_dim`` set the int8 tier."""
+    from ..config import ModelConfig, tiny_model_config
+
+    quant = {k: msec[k] for k in ("base_quant", "base_quant_min_dim") if k in msec}
+    if msec.get("tiny"):
+        return tiny_model_config(**quant)
+    return ModelConfig(dtype=str(msec.get("dtype", "bfloat16")), **quant)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train SAM3 with LoRA (PyTorch/CUDA)")
     parser.add_argument("--config", type=str, default="configs/full_lora_config.yaml",
                         help="Path to YAML configuration file")
     parser.add_argument("--num-epochs", type=int, default=None,
                         help="Override training.num_epochs")
-    parser.add_argument("--device", type=str, default=None,
-                        help="cuda or cpu (default: cuda when available)")
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    from ..config import LoRAConfig, ModelConfig, TrainConfig, load_yaml_config, tiny_model_config
+    from ..config import LoRAConfig, TrainConfig, load_yaml_config
     from ..train.data import COCOSegmentDataset, DataLoader
     from ..train.trainer import Trainer
 
@@ -50,8 +63,7 @@ def main(argv=None):
     if args.num_epochs is not None:
         tcfg = dataclasses.replace(tcfg, num_epochs=args.num_epochs)
     msec = cfg.get("model", {}) or {}
-    mcfg = (tiny_model_config() if msec.get("tiny")
-            else ModelConfig(dtype=str(msec.get("dtype", "bfloat16"))))
+    mcfg = model_config_from_yaml(msec)
 
     log = setup_logging(tcfg.output_dir)
     log.info("config: %s", args.config)

@@ -26,6 +26,7 @@ from .config import LoRAConfig, ModelConfig
 from .models import Batch, GeoPrompt, build_sam3_image_model, init_model
 from .models.lora import load_lora_weights
 from .models.tokenizer import get_default_tokenizer
+from .ops.quant import prequantize_model
 from .utils.checkpoint import load_base_checkpoint
 
 # the production normalization of the JAX data pipeline (train/data.py)
@@ -69,16 +70,12 @@ class SAM3LoRAInference:
         base_checkpoint: Optional[str] = None,
         threshold: float = 0.5,
         seed: int = 0,
-        device: Optional[Union[str, torch.device]] = None,
+        device: Union[str, torch.device] = "cuda",
     ):
         self.cfg = model_cfg or ModelConfig(dtype="bfloat16")
-        if self.cfg.base_quant != "none":
-            raise NotImplementedError("base_quant (the int8 tier) is not ported yet")
         self.lcfg = lora_cfg
         self.threshold = threshold
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu")
-        )
+        self.device = torch.device(device)  # the card unless the caller asks for the CPU
         self.model = build_sam3_image_model(self.cfg, lora=lora_cfg, device=self.device)
         self.tokenizer = get_default_tokenizer()
         init_model(self.model, torch.Generator(device=self.device).manual_seed(seed))
@@ -86,6 +83,10 @@ class SAM3LoRAInference:
             load_base_checkpoint(self.model, base_checkpoint)
         if weights:
             self.load_adapters(weights)
+        if self.cfg.base_quant != "none":
+            # quantize the frozen base once, at load: the same numbers as the
+            # per-call quantization, int8 weights in device memory
+            prequantize_model(self.model, self.cfg.base_quant_min_dim)
 
     # ------------------------------------------------------------------ #
     def load_adapters(self, path: str) -> int:

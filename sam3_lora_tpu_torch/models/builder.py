@@ -23,7 +23,12 @@ def build_sam3_image_model(
     the modules ``lora`` targets; fill them with ``init_model`` or a
     checkpoint (``utils/checkpoint.py``). Returned in eval mode with every
     parameter frozen (this is the serving path)."""
-    model = Sam3Image(Spec(model=config or ModelConfig(), lora=lora, device=device))
+    config = config or ModelConfig()
+    if config.base_quant == "int8_bwd":
+        raise NotImplementedError("int8_bwd is not ported yet")
+    if config.base_quant not in ("none", "int8"):
+        raise ValueError(f"unknown base_quant: {config.base_quant!r}")
+    model = Sam3Image(Spec(model=config, lora=lora, device=device))
     if lora is not None:
         apply_lora(model, lora)
     return model.eval().requires_grad_(False)

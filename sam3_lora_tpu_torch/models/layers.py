@@ -32,8 +32,10 @@ import torch.utils.checkpoint
 
 from ..config import LoRAConfig, ModelConfig
 
+from ..ops import gemm_int8
 from ..ops.attention import dot_product_attention, merge_heads, split_heads
 from ..ops.long_attention import long_attention_packed
+from ..ops.quant import int8_lora_matmul_prequant, int8_matmul, int8_matmul_prequant
 from ..ops.rpb_attention import separable_bias_attention
 
 
@@ -192,8 +194,18 @@ class LoRALinear(nn.Module):
     (r, in) and ``lora_b`` (out, r), attached by ``add_adapter`` when the
     model's ``LoRAConfig`` targets this module's name (``models/lora.py``).
     ``out_perm`` is the output-channel permutation the JAX module applies at
-    apply time; here the weight bridge folds it into ``weight``, ``bias`` and
-    ``lora_b`` once, at load, so the forward never permutes.
+    apply time; here the weight bridge folds it into ``weight``, ``bias``,
+    ``lora_b`` and ``weight_scale`` once, at load, so the forward never
+    permutes.
+
+    The int8 tier (``ModelConfig.base_quant``, ``ops/quant.py``) covers the
+    layer when ``min(in, out) >= base_quant_min_dim``; the layer then has a
+    ``weight_scale`` (out,), the JAX ``kernel_scale``. A float weight is
+    quantized on every call (``int8_matmul``); an int8 weight (after
+    ``prequantize_model``) runs ``int8_matmul_prequant``, then the bias, then
+    the adapter branch. With ``GEMM_LORA_FUSED`` on, an int8 weight with an
+    adapter of rank % 8 == 0 (in eval, or with LoRA dropout 0) takes the
+    fused product (K5), and the bias is added after the fused sum.
     """
 
     def __init__(
@@ -210,6 +222,9 @@ class LoRALinear(nn.Module):
         self.in_features, self.features = in_features, features
         self.zero_init = zero_init
         self.weight = spec.empty(features, in_features)
+        mcfg = spec.model
+        quant = mcfg.base_quant != "none" and min(in_features, features) >= mcfg.base_quant_min_dim
+        self.weight_scale = spec.empty(features, dtype=torch.float32) if quant else None
         self.bias = spec.empty(features) if use_bias else None
         self.out_perm = None if out_perm is None else torch.as_tensor(out_perm)
         self.lora_a: Optional[nn.Parameter] = None
@@ -226,16 +241,38 @@ class LoRALinear(nn.Module):
             nn.init.zeros_(self.weight)
         else:
             uniform_(self.weight, lecun_bound(self.in_features), g)
+        if self.weight_scale is not None:
+            nn.init.zeros_(self.weight_scale)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
         if self.lora_a is not None:
             uniform_(self.lora_a, lecun_bound(self.in_features), g)
             nn.init.zeros_(self.lora_b)
 
+    def _fused(self) -> bool:
+        lcfg = self.spec.lora
+        return (gemm_int8.GEMM_LORA_FUSED and self.weight.dtype == torch.int8
+                and self.lora_a is not None and self.spec.model.base_quant == "int8"
+                and (not self.training or lcfg is None or lcfg.dropout == 0.0)
+                and self.lora_a.shape[0] % 8 == 0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.spec.dtype
         x = x.to(dt)
-        y = F.linear(x, self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        if self.weight_scale is None:
+            y = F.linear(x, self.weight.to(dt), bias)
+        elif self._fused():
+            y = int8_lora_matmul_prequant(x, self.weight, self.weight_scale, self.lora_a,
+                                          self.lora_b, self.scaling)
+            return y if bias is None else y + bias
+        else:
+            if self.weight.dtype == torch.int8:
+                y = int8_matmul_prequant(x, self.weight, self.weight_scale)
+            else:
+                y = int8_matmul(x, self.weight)
+            if bias is not None:
+                y = y + bias
         if self.lora_a is not None:
             xin = x
             if self.training and self.spec.lora is not None:

@@ -2,12 +2,11 @@
 
 ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` hold the forward and
 backward CUDA kernels of the three attention entry points
-(``window_attention.py``, ``long_attention.py``). This module compiles them
-with ``nvcc`` (one process per source, all started together, then one link)
-into a shared library under ``_build/`` at first use, keyed on a hash of the
-sources, loads it with ``ctypes``, and launches on PyTorch's current stream.
-Nothing here runs at import: the CPU tests import every module on a host
-without ``nvcc``.
+(``window_attention.py``, ``long_attention.py``). ``_cuda.py`` builds them,
+with the port's other kernels, into one shared library at first use; this
+module declares their C entry points and launches on PyTorch's current
+stream. Nothing here runs at import: the CPU tests import every module on a
+host without ``nvcc``.
 
 ``attention_packed_plain`` and ``attention_packed_bwd_plain`` are the plain
 PyTorch versions of the forward and the backward (explicit fp32 formulas).
@@ -26,84 +25,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional, Tuple
 
 import torch
 
+from . import _cuda
 from .rope import apply_rope_half, apply_rope_half_inv
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_SOURCES = ("attention_fwd.cu", "attention_bwd.cu")
-_HEADERS = ("attention_common.cuh",)
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
-)
 SUPPORTED_HEAD_DIMS = (32, 64)
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _run(procs) -> None:
-    failed = []
-    for cmd, proc in procs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-
-
-@functools.lru_cache(maxsize=1)
-def build() -> str:
-    """Compile the kernel library if this source hash has no build yet;
-    return the path of the shared library."""
-    h = hashlib.sha256()
-    for name in _SOURCES + _HEADERS:
-        with open(os.path.join(_CSRC_DIR, name), "rb") as f:
-            h.update(name.encode() + f.read())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    out_dir = os.path.join(_BUILD_DIR, h.hexdigest()[:16])
-    lib = os.path.join(out_dir, "libsam3_attention.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(out_dir, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs, procs = [], []
-        for name in _SOURCES:
-            obj = os.path.join(tmp, name + ".o")
-            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC_DIR, name)]
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.PIPE, text=True)))
-            objs.append(obj)
-        _run(procs)
-        so = os.path.join(tmp, "lib.so")
-        cmd = [nvcc, *_NVCC_FLAGS, "-shared", "-o", so, *objs]
-        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True))])
-        os.replace(so, lib)  # atomic: a concurrent reader sees all or nothing
-    return lib
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build())
+    lib = _cuda.library()
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sam3_attention_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [i64] * 8 + [ctypes.c_float, ptr]
     lib.sam3_attention_fwd.restype = i32

@@ -8,18 +8,15 @@ resized with the image and area-downsampled to ``mask_loss_resolution``,
 boxes normalized to cxcywh, and the category-aware query text. Targets pad
 to ``max_targets`` slots with validity masks.
 
-The JAX package's ``train/transforms.py`` imports no JAX and is used as it
-is. Its ``ops/rle.py`` sits in a package whose ``__init__`` imports JAX, so
-it is loaded by file path, as ``models/tokenizer.py`` loads the tokenizer.
-PIL is imported only by the functions that decode or write images.
+The datapoint schema and the eval transform are the port's own
+(``train/transforms.py``), as is the COCO segmentation decoder
+(``ops/rle.py``). PIL is imported only by the functions that decode or
+write images.
 """
 
 from __future__ import annotations
 
-import functools
-import importlib.util
 import json
-import os
 import queue
 import threading
 from collections import Counter
@@ -31,28 +28,12 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-import sam3_lora_tpu
-from sam3_lora_tpu.train import transforms as T
-
 from ..config import ModelConfig
 from ..models.geometry import GeoPrompt
 from ..models.sam3_image import Batch, Targets
 from ..models.tokenizer import get_default_tokenizer
-
-_RLE_PATH = os.path.join(os.path.dirname(sam3_lora_tpu.__file__), "ops", "rle.py")
-
-
-@functools.lru_cache(maxsize=1)
-def _rle():
-    spec = importlib.util.spec_from_file_location("_sam3_rle", _RLE_PATH)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def segmentation_to_mask(seg, h: int, w: int) -> np.ndarray:
-    """A COCO ``segmentation`` field (polygons or RLE) -> (h, w) uint8."""
-    return _rle().segmentation_to_mask(seg, h, w)
+from ..ops.rle import segmentation_to_mask
+from . import transforms as T
 
 
 @dataclass
@@ -109,8 +90,10 @@ def pad_targets(query: Optional["T.Query"], cfg: ModelConfig, r: int):
 
 class COCOSegmentDataset:
     """Reads ``<data_dir>/<split>/_annotations.coco.json`` (Roboflow layout).
-    ``transforms`` is an optional datapoint pipeline from the JAX package's
-    ``train/transforms.py``; by default images are resized only."""
+    ``transforms`` is an optional datapoint pipeline, a callable
+    ``(Datapoint, RandomState) -> Datapoint`` ending at CHW (as the JAX
+    package's ``train/transforms.py`` pipelines do); by default images are
+    resized only."""
 
     def __init__(
         self,

@@ -31,6 +31,7 @@ import torch
 from ..config import LoRAConfig, ModelConfig, TrainConfig
 from ..models import Batch, build_sam3_image_model, init_model
 from ..models.lora import save_lora_weights, trainable_parameters
+from ..ops.quant import prequantize_model
 from .losses import LossConfig, compute_losses
 from .prefetch import batch_to_device, map_tensors, prefetch_to_device
 
@@ -153,13 +154,13 @@ class Trainer:
         train_cfg: Optional[TrainConfig] = None,
         base_checkpoint: Optional[str] = None,
         loss_cfg: Optional[LossConfig] = None,
-        device=None,
+        device="cuda",
     ):
         self.mcfg = model_cfg or ModelConfig()
         self.lcfg = lora_cfg or LoRAConfig()
         self.tcfg = train_cfg or TrainConfig()
         self.loss_cfg = loss_cfg or LossConfig()
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device)  # the card unless the caller asks for the CPU
         self.model = build_sam3_image_model(self.mcfg, lora=self.lcfg, device=self.device)
         self.base_checkpoint = base_checkpoint
         self.step = 0  # optimizer updates taken
@@ -172,6 +173,10 @@ class Trainer:
 
             n = load_base_checkpoint(self.model, self.base_checkpoint, strict=False)
             log.info("loaded %d base tensors from %s", n, self.base_checkpoint)
+        if self.mcfg.base_quant != "none":
+            # quantize the frozen base once: the same numbers as the per-call
+            # quantization, minus its pass in every forward and remat replay
+            prequantize_model(self.model, self.mcfg.base_quant_min_dim)
         named = trainable_parameters(self.model)
         self.trainable = [p for _, p in named]
         self.trainable_names = [n for n, _ in named]

@@ -10,6 +10,9 @@ change:
   included -> ``weight`` (out, in, kh, kw);
 * MHA ``in_proj_weight`` (d, 3d) -> (3d, d);
 * ``lora_a`` (in, r) -> (r, in), ``lora_b`` (r, out) -> (out, r);
+* the int8 tier's ``kernel_scale`` (1, out) -> ``weight_scale`` (out,), and
+  an int8 ``kernel`` (in, out), as ``prequantize_base`` leaves it, -> an
+  int8 ``weight`` (out, in);
 * the scanned ViT groups ``scan_blocks_{g}.block.*`` (stacked on a leading
   axis) -> ``blocks.{i}.*``, with the group map of the JAX ViT
   (``stack_scanned`` goes the other way, for saving adapters);
@@ -18,7 +21,9 @@ change:
 
 ``load_jax_params`` then folds the rotate-half column permutation of the ViT
 qkv projection (which the JAX module applies at every call) into the q/k
-output channels of ``weight``, ``bias`` and ``lora_b``, once, at load.
+output channels of ``weight``, ``bias``, ``lora_b`` and ``weight_scale``,
+once, at load. An int8 tensor replaces its parameter (the layer then runs
+the prequantized int8 route); a float one is copied in the parameter's dtype.
 """
 
 from __future__ import annotations
@@ -119,6 +124,9 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if leaf == "kernel":
             name = name[: -len("kernel")] + "weight"
             arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        elif leaf == "kernel_scale":
+            name = name[: -len("kernel_scale")] + "weight_scale"
+            arr = arr.reshape(-1)
         elif leaf in ("in_proj_weight", "lora_a", "lora_b"):
             arr = arr.T
         out[name] = torch.from_numpy(np.ascontiguousarray(arr))
@@ -128,7 +136,7 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def _fold_out_perm(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
     for name, m in model.named_modules():
         if isinstance(m, LoRALinear) and m.out_perm is not None:
-            for leaf in ("weight", "bias", "lora_b"):
+            for leaf in ("weight", "bias", "lora_b", "weight_scale"):
                 key = f"{name}.{leaf}"
                 if key in tensors:  # rows are the output channels
                     tensors[key] = tensors[key][m.out_perm]
@@ -144,8 +152,11 @@ def load_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor], strict: boo
     extra = sorted(set(tensors) - set(params))
     if extra:
         raise KeyError(f"{len(extra)} checkpoint keys not in model (first: {extra[:5]})")
+    # adapters, and the int8 tier's scales (unused until prequantize_model
+    # fills them), may be absent from a base checkpoint
     missing = sorted(
-        k for k in set(params) - set(tensors) if not k.endswith(("lora_a", "lora_b"))
+        k for k in set(params) - set(tensors)
+        if not k.endswith(("lora_a", "lora_b", "weight_scale"))
     )
     if missing and strict:
         raise KeyError(f"{len(missing)} model params missing from checkpoint (first: {missing[:5]})")
@@ -154,7 +165,14 @@ def load_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor], strict: boo
             p = params[k]
             if tuple(p.shape) != tuple(t.shape):
                 raise ValueError(f"shape mismatch for {k}: ckpt {tuple(t.shape)} vs model {tuple(p.shape)}")
-            p.copy_(t.to(dtype=p.dtype, device=p.device))
+            if torch.int8 in (t.dtype, p.dtype) and t.dtype != p.dtype:
+                owner, _, leaf = k.rpartition(".")
+                owner = model.get_submodule(owner)
+                dtype = t.dtype if t.dtype == torch.int8 else owner.spec.param_dtype
+                setattr(owner, leaf, nn.Parameter(t.to(device=p.device, dtype=dtype),
+                                                  requires_grad=False))
+            else:
+                p.copy_(t.to(dtype=p.dtype, device=p.device))
     return len(tensors)
 
 

@@ -1,18 +1,24 @@
-"""The port's CUDA attention kernels on the card: each entry point's forward
+"""The port's CUDA kernels on the card: each attention entry point's forward
 and the backward kernels against their plain PyTorch versions at small and
 ragged shapes, strided operands, the autograd Functions (outputs carry a
 ``grad_fn`` and their backward launches the kernel), and the wrapper's
-input checks. These need an NVIDIA GPU with nvcc and skip
-elsewhere; on a machine with a GPU run
+input checks; the int8 tier's K4/K5/K6 (``ops/gemm_int8.py``) against their
+plain versions at the model's K x N, their counters, the routing of the
+autograd Functions and the wrapper's checks. These need an NVIDIA GPU with
+nvcc and skip elsewhere; on a machine with a GPU run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerance: max |kernel - plain| <= 2e-2 * max |plain|, as in chip_smoke.py
-(bf16 output against the fp32-softmax plain version: about 2.5 bf16 ulps at
-the largest output)."""
+Tolerance: attention max |kernel - plain| <= 2e-2 * max |plain|, as in
+chip_smoke.py (bf16 output against the fp32-softmax plain version: about 2.5
+bf16 ulps at the largest output). K4 is held equal bit for bit (the same
+int8 values, an exact int32 sum, the same fp32 scaling); K5 and K6 within
+8e-3 * max |plain|, one bf16 ulp of the largest output (the bf16 products'
+sums run in another order)."""
 
 import numpy as np
 import pytest
 import torch
 
+from sam3_lora_tpu_torch.ops import gemm_int8, quant
 from sam3_lora_tpu_torch.ops.attention_kernel import (
     attend_qkv,
     attention_packed_bwd_cuda,
@@ -157,3 +163,113 @@ def test_packed_qkv_gradient_is_one_tensor(gen):
     refs = attention_packed_bwd_plain(q, k, v, out.detach(), do, dh ** -0.5, dh, cos, sin)
     for g, r in zip(qkv.grad.chunk(3, dim=-1), refs):
         _assert_matches(g, r)
+
+
+GEMM_RTOL = 8e-3
+VIT_KN = [(1024, 3072), (1024, 1024), (1024, 4736), (4736, 1024)]  # qkv, proj, fc1, fc2
+TEXT_KN = [(1024, 4096), (4096, 1024)]  # c_fc, c_proj (out_proj is 1024 x 1024)
+ROWS = [1, 37, 96, 1000, 5184]
+
+
+def _int8_operands(gen, m, k, n, r=0):
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5
+    wq, ws = quant.quantize_weight(w)
+    a = (0.1 * torch.randn(r, k, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = (0.1 * torch.randn(n, r, generator=gen, device="cuda")).to(torch.bfloat16)
+    return x, wq, ws, a, b
+
+
+def _assert_gemm_close(out, ref):
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= GEMM_RTOL * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", VIT_KN + TEXT_KN)
+def test_k4_equals_plain_bit_for_bit(gen, m, k, n):
+    x, wq, ws, _, _ = _int8_operands(gen, m, k, n)
+    before = gemm_int8.int8_gemm_wres.launches
+    out = gemm_int8.int8_gemm_wres(x, wq, ws)
+    torch.cuda.synchronize()
+    assert gemm_int8.int8_gemm_wres.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    assert torch.equal(out, gemm_int8.int8_gemm_wres_plain(x, wq, ws))
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", VIT_KN + TEXT_KN)
+def test_k5_matches_plain(gen, m, k, n):
+    r = 8 if m % 2 else 32
+    x, wq, ws, a, b = _int8_operands(gen, m, k, n, r)
+    before = gemm_int8.int8_lora_gemm_wres.launches
+    out = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert gemm_int8.int8_lora_gemm_wres.launches == before + 1
+    _assert_gemm_close(out, gemm_int8.int8_lora_gemm_wres_plain(x, wq, ws, a, b, 2.0))
+
+
+@pytest.mark.parametrize("r", [16, 24, 64])
+def test_k5_other_ranks(gen, r):
+    x, wq, ws, a, b = _int8_operands(gen, 1000, 1024, 4736, r)
+    out = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 0.5)
+    _assert_gemm_close(out, gemm_int8.int8_lora_gemm_wres_plain(x, wq, ws, a, b, 0.5))
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", VIT_KN + TEXT_KN)
+def test_k6_matches_plain(gen, m, k, n):
+    _, wq, ws, _, _ = _int8_operands(gen, 1, k, n)
+    dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    before = gemm_int8.bf16_gemm_wres_nt.launches
+    out = gemm_int8.bf16_gemm_wres_nt(dy, wq, ws)
+    torch.cuda.synchronize()
+    assert gemm_int8.bf16_gemm_wres_nt.launches == before + 1
+    assert out.shape == (m, k)
+    _assert_gemm_close(out, gemm_int8.bf16_gemm_wres_nt_plain(dy, wq, ws))
+
+
+@pytest.mark.parametrize("bwd_kernel", [False, True])
+def test_int8_functions_carry_grad_fn_and_route_dx(gen, bwd_kernel, monkeypatch):
+    """int8_matmul_prequant on the card: K4 forward; its dx goes to K6 when
+    GEMM_BWD_KERNEL is on and the width gate passes (fc1's 1024 x 4736)."""
+    monkeypatch.setattr(gemm_int8, "GEMM_BWD_KERNEL", bwd_kernel)
+    x, wq, ws, _, _ = _int8_operands(gen, 2 * 96, 1024, 4736)
+    x = x.reshape(2, 96, 1024).requires_grad_(True)
+    k4, k6 = gemm_int8.int8_gemm_wres.launches, gemm_int8.bf16_gemm_wres_nt.launches
+    y = quant.int8_matmul_prequant(x, wq, ws)
+    assert y.grad_fn is not None and y.shape == (2, 96, 4736)
+    dy = torch.randn(y.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert gemm_int8.int8_gemm_wres.launches == k4 + 1
+    assert gemm_int8.bf16_gemm_wres_nt.launches == k6 + int(bwd_kernel)
+    ref = gemm_int8.bf16_gemm_wres_nt_plain(dy.reshape(-1, 4736), wq, ws).reshape(x.shape)
+    _assert_gemm_close(x.grad, ref)
+
+
+def test_fused_function_grads_on_the_card(gen):
+    x, wq, ws, a, b = _int8_operands(gen, 300, 1024, 3072, 8)
+    x.requires_grad_(True)
+    la, lb = a.float().requires_grad_(True), b.float().requires_grad_(True)
+    before = gemm_int8.int8_lora_gemm_wres.launches
+    y = quant.int8_lora_matmul_prequant(x, wq, ws, la, lb, 2.0)
+    assert y.grad_fn is not None and gemm_int8.int8_lora_gemm_wres.launches == before + 1
+    y.backward(torch.ones_like(y))
+    torch.cuda.synchronize()
+    for t in (x.grad, la.grad, lb.grad):
+        assert torch.isfinite(t.float()).all() and t.float().abs().max() > 0
+
+
+def test_gemm_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x, wq, ws, a, b = _int8_operands(gen, 64, 1024, 1024, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gemm_int8.int8_gemm_wres_cuda(x.cpu(), wq, ws)
+    with pytest.raises(ValueError, match="K % 32"):
+        gemm_int8.int8_gemm_wres_cuda(x[:, :1000].contiguous(), wq[:, :1000].contiguous(), ws)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gemm_int8.int8_gemm_wres_cuda(x.float(), wq, ws)
+    with pytest.raises(ValueError, match="rank"):
+        gemm_int8.int8_lora_gemm_wres_cuda(x, wq, ws, a[:4], b[:, :4], 1.0)
+    with pytest.raises(ValueError, match="K % 32"):
+        gemm_int8.bf16_gemm_wres_nt_cuda(x[:, :1000].contiguous(), wq[:, :1000].contiguous(), ws)

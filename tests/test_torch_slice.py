@@ -192,7 +192,8 @@ def test_cli_infer_tiny(tmp_path, capsys):
     Image.fromarray(np.random.RandomState(0).randint(0, 255, (40, 60, 3)).astype(np.uint8)).save(img)
     out = tmp_path / "out.png"
     infer.main(["--config", str(yaml_path), "--weights", lora, "--image", str(img),
-                "--prompt", "crack", "dog", "--output", str(out), "--threshold", "0.0"])
+                "--prompt", "crack", "dog", "--output", str(out), "--threshold", "0.0",
+                "--device", "cpu"])
     text = capsys.readouterr().out
     assert "'crack': 12 detections" in text and "'dog': 12 detections" in text
     assert out.exists()

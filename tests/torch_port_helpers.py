@@ -29,17 +29,29 @@ def _fill(name: str, shape, rng: np.random.RandomState) -> np.ndarray:
     return (scale * rng.standard_normal(shape)).astype(np.float32)
 
 
-def random_jax_params(module, *args, seed: int = 0, **kwargs):
-    """-> (params pytree for ``module.apply``, flat '.'-joined numpy dict)."""
+def param_specs(module, *args, **kwargs):
+    """The parameters of ``module.init`` as (path tuple, shape) pairs, in
+    the order ``fill_params`` draws them."""
     shapes = jax.eval_shape(
         lambda: module.init({"params": jax.random.PRNGKey(0)}, *args, **kwargs)
     )["params"]
+    return [(path, tuple(s.shape)) for path, s in sorted(traverse_util.flatten_dict(shapes).items())]
+
+
+def fill_params(specs, seed: int = 0):
+    """(path tuple, shape) pairs -> flat '.'-joined numpy dict of seeded
+    random values (numpy only: the port's tests rebuild JAX weights with it)."""
     rng = np.random.RandomState(seed)
-    flat_np = {}
-    for path, s in sorted(traverse_util.flatten_dict(shapes).items()):
-        flat_np[path] = _fill(".".join(path), s.shape, rng)
-    params = traverse_util.unflatten_dict({k: jax.numpy.asarray(v) for k, v in flat_np.items()})
-    return params, {".".join(k): v for k, v in flat_np.items()}
+    return {".".join(path): _fill(".".join(path), shape, rng) for path, shape in specs}
+
+
+def random_jax_params(module, *args, seed: int = 0, **kwargs):
+    """-> (params pytree for ``module.apply``, flat '.'-joined numpy dict)."""
+    specs = param_specs(module, *args, **kwargs)
+    flat = fill_params(specs, seed)
+    params = traverse_util.unflatten_dict(
+        {path: jax.numpy.asarray(flat[".".join(path)]) for path, _ in specs})
+    return params, flat
 
 
 def jax_apply(module, params, *args, **kwargs):
