@@ -9,11 +9,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    plain PyTorch version, on the operands the serving path
                    hands it; the backward kernels (and the forward's
                    log-sum-exp) against attention_packed_bwd_plain on the
-                   operands of the training path at batch 4; the int8 tier's
-                   K4/K5/K6 against their plain versions at every ViT shape at
-                   M = 5184 (serving) and 20736 (training), the text shapes at
-                   M = 96 and a ragged M; bf16; errors, median CUDA-event
-                   times, roofline bounds and a library yardstick each.
+                   operands of the training path at batch 4; the window
+                   routes K1', W-g, W-p and W-qkv (with and without RoPE)
+                   forward at serving's 9 windows and backward at batch 8;
+                   the int8 tier's K4/K5/K6 against their plain versions at
+                   every ViT shape at M = 5184 (serving) and 20736
+                   (training), the text shapes at M = 96 and a ragged M;
+                   bf16; errors, median CUDA-event times, roofline bounds and
+                   a library yardstick each.
   4. slice       - SAM3LoRAInference at the full 848M config (bf16, seeded random
                    weights, nonzero adapters) answers three requests of 1, 2 and
                    3 prompts; every output finite and of the right shape; the
@@ -27,15 +30,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    forward and backward launch counts equal to the design's.
   7. train-int8  - the same with base_quant="int8" and GEMM_BWD_KERNEL on: K4
                    forward (remat replays included) and K6 for the fc1/fc2 dx.
-  8. small       - a small config whose path runs every attention kernel: its
+  8. bench-train - Trainer.fit at bench.py's configuration (bench_model_config
+                   and bench_lora_config: bf16 storage, the int8 tier,
+                   wo_block_mid, enc_remat_ffn, rank 32), batch 8: one
+                   warm-up and three timed steps, launch counts equal to the
+                   design's (no attention forward replays).
+  9. routes      - one full-width bf16 model answers one request per window
+                   route (default K1, QKV_NATIVE W-qkv, FUSE_ROPE off W-p,
+                   _PACKED off W-g with and without RoPE): each runs its own
+                   entry and no other, outputs within SMALL_TOL of the
+                   default route's; a vit_use_rope=False model through K1',
+                   W-qkv and W-g without RoPE.
+ 10. int8_bwd    - one full-width training step with base_quant="int8_bwd".
+ 11. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
-                   fp32 on the CPU; then again with its ViT in the int8 tier.
+                   fp32 on the CPU; again with its ViT in the int8 tier; at
+                   the bench settings (bf16 storage, int8 and int8_bwd); and
+                   one training step per window route, with and without
+                   RoPE.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import json
 import os
 import statistics
@@ -47,12 +67,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sam3_lora_tpu_torch.config import LoRAConfig, ModelConfig, TrainConfig, tiny_model_config
+from sam3_lora_tpu_torch.config import (
+    LoRAConfig, ModelConfig, TrainConfig, bench_lora_config, bench_model_config, tiny_model_config,
+)
 from sam3_lora_tpu_torch.inference import SAM3LoRAInference
 from sam3_lora_tpu_torch.models import Batch, build_sam3_image_model, init_model
 from sam3_lora_tpu_torch.models.layers import LoRALinear
 from sam3_lora_tpu_torch.models.lora import trainable_parameters
-from sam3_lora_tpu_torch.ops import _cuda, attention_kernel, gemm_int8, quant
+from sam3_lora_tpu_torch.ops.attention import dot_product_attention
+from sam3_lora_tpu_torch.ops import _cuda, attention_kernel, gemm_int8, quant, window_qkv
+from sam3_lora_tpu_torch.ops import window_attention as wa
 from sam3_lora_tpu_torch.ops.long_attention import (
     long_attention_packed,
     long_attention_packed_plain,
@@ -64,6 +88,7 @@ from sam3_lora_tpu_torch.ops.window_attention import (
     window_attention_rope_packed,
     window_attention_rope_packed_plain,
 )
+from sam3_lora_tpu_torch.ops.window_qkv import window_attention_qkv, window_attention_rope_qkv
 from sam3_lora_tpu_torch.train.data import DataLoader, Sample
 from sam3_lora_tpu_torch.train.losses import compute_losses
 from sam3_lora_tpu_torch.train.prefetch import batch_to_device
@@ -113,6 +138,13 @@ TRAIN_BATCH = 4
 TRAIN_STEPS = 4  # one warm-up, three timed
 LORA = LoRAConfig(target_modules=("qkv", "fc1", "fc2", "linear1", "linear2"))
 ENTRIES = (window_attention_rope_packed, long_attention_rope_packed, long_attention_packed)
+# the window routes: K1', W-g and W-p with and without RoPE, W-qkv
+WINDOW_ROUTES = (wa.window_attention_packed, wa.window_attention_grouped,
+                 wa.window_attention_rope_grouped, wa.window_attention_pair_packed,
+                 wa.window_attention_rope_pair_packed, window_attention_qkv,
+                 window_attention_rope_qkv)
+ATTENTION = ENTRIES + WINDOW_ROUTES
+BENCH_BATCH = 8
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -182,25 +214,29 @@ def roofline(t_ops: float, nbytes: float):
     return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
 
-def attention_work(q, head_dim: int, backward: bool):
-    """(operations, bytes) of one attention call on (N, L, P*dh) operands:
-    4*L^2*dh per batch-head forward (QK^T and PV), 2.5x that backward; q, k,
-    v (and o, do, the fp32 lse) read once, o (dq, dk, dv) written once."""
-    n, l, pd = q.shape
-    elems = n * l * pd
-    ops = 4.0 * l * l * head_dim * n * (pd // head_dim)
+def attention_work(heads: int, l: int, head_dim: int, backward: bool):
+    """(operations, bytes) of one attention call over ``heads`` (batch x
+    head) sequences of L rows of dh: 4*L^2*dh per sequence forward (QK^T and
+    PV), 2.5x that backward; q, k, v (and o, do, the fp32 lse) read once, o
+    (dq, dk, dv) written once."""
+    elems = heads * l * head_dim
+    ops = 4.0 * l * l * head_dim * heads
     if backward:
-        return 2.5 * ops, 8 * elems * 2 + n * (pd // head_dim) * l * 4
+        return 2.5 * ops, 8 * elems * 2 + heads * l * 4
     return ops, 4 * elems * 2
 
 
-def sdpa_heads(q, k, v, head_dim, cos, sin):
-    """(N, P, L, dh) contiguous q, k (rotated) and v for the library's
-    scaled_dot_product_attention."""
-    qh, kh, vh = (attention_kernel._heads(t, head_dim) for t in (q, k, v))
+def sdpa_operands(qh, kh, vh, cos, sin):
+    """(N, P, L, dh) contiguous q, k (rotated) and v, from (N, P, L, dh)
+    views, for the library's scaled_dot_product_attention."""
     if cos is not None:
         qh, kh = (attention_kernel.apply_rope_half(t, cos, sin) for t in (qh, kh))
     return qh.contiguous(), kh.contiguous(), vh.contiguous()
+
+
+def sdpa_heads(q, k, v, head_dim, cos, sin):
+    """``sdpa_operands`` of packed (N, L, P*dh) operands."""
+    return sdpa_operands(*(attention_kernel._heads(t, head_dim) for t in (q, k, v)), cos, sin)
 
 
 def phase_kernels(g: torch.Generator, n_prompts: int):
@@ -214,7 +250,7 @@ def phase_kernels(g: torch.Generator, n_prompts: int):
         ms = median_ms(lambda: entry(*args))
         plain_ms = median_ms(lambda: plain(*args), reps=5)
         q, k, v, scale, dh, cos, sin = _split(entry, args)
-        ops, nbytes = attention_work(q, dh, False)
+        ops, nbytes = attention_work(q.shape[0] * q.shape[2] // dh, q.shape[1], dh, False)
         bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
         qh, kh, vh = sdpa_heads(q, k, v, dh, cos, sin)
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
@@ -230,10 +266,11 @@ def phase_kernels(g: torch.Generator, n_prompts: int):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
     bwd_rows, bwd_failed = phase_backward_kernels(g)
+    route_rows, route_failed = phase_window_route_kernels(g)
     gemm_rows, gemm_failed = phase_gemm_kernels(g)
-    if failed + bwd_failed + gemm_failed:
-        raise AssertionError("; ".join(failed + bwd_failed + gemm_failed))
-    return rows + bwd_rows + gemm_rows
+    if failed + bwd_failed + route_failed + gemm_failed:
+        raise AssertionError("; ".join(failed + bwd_failed + route_failed + gemm_failed))
+    return rows + bwd_rows + route_rows + gemm_rows
 
 
 BWD_REPLACES = {
@@ -276,7 +313,7 @@ def phase_backward_kernels(g: torch.Generator):
             q, k, v, o, lse, do, scale, dh, cos, sin))
         plain_ms = median_ms(lambda: attention_kernel.attention_packed_bwd_plain(
             q, k, v, o, do, scale, dh, cos, sin), reps=3)
-        ops, nbytes = attention_work(q, dh, True)
+        ops, nbytes = attention_work(q.shape[0] * q.shape[2] // dh, q.shape[1], dh, True)
         bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
         # the library's backward on the rotated operands: autograd of one
         # scaled_dot_product_attention call, its forward outside the timing
@@ -296,6 +333,143 @@ def phase_backward_kernels(g: torch.Generator):
                      "replaces": BWD_REPLACES[entry.__name__], "launches": 0,
                      "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+    return rows, failed
+
+
+WA, WQ = "sam3_lora_tpu/ops/window_attention.py", "sam3_lora_tpu/ops/window_qkv.py"
+ROUTE_REPLACES = {  # (forward, backward) TPU kernel of each window route
+    "window_attention_packed": (f"{WA}:639", f"{WA}:426"),
+    "window_attention_grouped": (f"{WA}:507", f"{WA}:507"),
+    "window_attention_rope_grouped": (f"{WA}:507", f"{WA}:507"),
+    "window_attention_pair_packed": (f"{WA}:584", f"{WA}:584"),
+    "window_attention_rope_pair_packed": (f"{WA}:584", f"{WA}:584"),
+    "window_attention_qkv": (f"{WQ}:178", f"{WQ}:208"),
+    "window_attention_rope_qkv": (f"{WQ}:178", f"{WQ}:208"),
+}
+
+
+class RouteOperands:
+    """One window route's operands at ``n_images`` images (9 windows of 576
+    tokens each, 16 heads x 64) as the ViT hands them: ``args`` for the entry
+    (W-qkv: the (N, L, 3072) qkv projection output; W-g, W-p: (N, 16, L, 64)
+    views of it; K1': (N*8, L, 128) head pairs, as the JAX packed chain lays
+    them out), ``views`` the (N', P, L, 64) q, k, v the kernel reads,
+    ``to_views`` the map of the entry's output (and gradients) to that
+    layout."""
+
+    def __init__(self, g: torch.Generator, entry, n_images: int):
+        cfg = ModelConfig()
+        d, heads, ws = cfg.vit_dim, cfg.vit_heads, cfg.vit_window_size
+        dh, l = d // heads, ws * ws
+        n = (cfg.feat_size // ws) ** 2 * n_images
+        self.qkv = torch.randn(n, l, 3 * d, generator=g, device="cuda").to(torch.bfloat16)
+        rope = "rope" in entry.__name__
+        self.cos, self.sin = rope_tables(dh, ws, 1.0) if rope else (None, None)
+        tables = (self.cos, self.sin) if rope else ()
+        self.scale = dh ** -0.5
+        heads4 = functools.partial(attention_kernel._heads, head_dim=dh)
+        self.out_shape = (n, heads, l, dh)
+        self.on_qkv = entry in (window_attention_qkv, window_attention_rope_qkv)
+        if self.on_qkv:
+            self.args = (self.qkv, heads, self.scale, *tables)
+            self.views, self.to_views = [heads4(t) for t in self.qkv.chunk(3, -1)], heads4
+            self.out_shape = (n, l, d)
+        elif entry is wa.window_attention_packed:
+            pairs = [t.reshape(n, l, heads // 2, 2 * dh).transpose(1, 2).reshape(-1, l, 2 * dh)
+                     .contiguous() for t in self.qkv.chunk(3, -1)]
+            self.args = (*pairs, self.scale)
+            self.views, self.to_views = [heads4(t) for t in pairs], heads4
+            self.out_shape = pairs[0].shape
+        else:
+            views = self.qkv.reshape(n, l, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+            self.args = (*views, self.scale, *tables)
+            pair = entry in (wa.window_attention_pair_packed, wa.window_attention_rope_pair_packed)
+            # W-p: the head-pair view copies the strided views (the relayout)
+            self.to_views = wa._pairs if pair else (lambda t: t)
+            self.views = [self.to_views(t) for t in views]
+
+    def buffers(self, n: int):
+        """``n`` new outputs in the entry's layout, as kernel views; the
+        W-qkv gradients are the column blocks of one (N, L, 3072) tensor."""
+        if self.on_qkv and n == 3:
+            return [self.to_views(t) for t in torch.empty_like(self.qkv).chunk(3, -1)]
+        return [self.to_views(torch.empty(self.out_shape, dtype=torch.bfloat16, device="cuda"))
+                for _ in range(n)]
+
+
+def phase_window_route_kernels(g: torch.Generator):
+    """K1', W-g, W-p and W-qkv: the forward through each entry at serving's
+    operands (one image), the backward kernels on each route's layout at
+    batch 8, against the plain versions; returns (rows, failures)."""
+    rows, failed = [], []
+    ak = attention_kernel
+    for entry in WINDOW_ROUTES:
+        name = entry.__name__
+        op = RouteOperands(g, entry, 1)
+        out = entry(*op.args)
+        torch.cuda.synchronize()
+        ref = ak.attention_plain(*op.views, op.scale, op.cos, op.sin)
+        err = (op.to_views(out).float() - ref.float()).abs().max().item()
+        bound = KERNEL_RTOL * ref.float().abs().max().item()
+        ms = median_ms(lambda: entry(*op.args))
+        plain_ms = median_ms(lambda: ak.attention_plain(*op.views, op.scale, op.cos, op.sin), reps=5)
+        n, p, l, dh = op.views[0].shape
+        ops, nbytes = attention_work(n * p, l, dh, False)
+        bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
+        qh, kh, vh = sdpa_operands(*op.views, op.cos, op.sin)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=op.scale))
+        del qh, kh, vh, out, ref
+        print(f"kernel {name} q{tuple(op.views[0].shape)} stride{op.views[0].stride()}: "
+              f"max_abs_err {err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, roofline {bound_ms:.4f} ms ({bound_by}), "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+        if not err <= bound:
+            failed.append(f"{name}: max abs err {err:.3e} > {bound:.3e}")
+        rows.append({"name": name, "route": "cuda", "source": FWD_SOURCE,
+                     "replaces": ROUTE_REPLACES[name][0], "launches": 0, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms})
+
+        op = RouteOperands(g, entry, BENCH_BATCH)
+        q, k, v = op.views
+        o = op.buffers(1)[0]
+        _, lse = ak.attention_cuda(q, k, v, op.scale, op.cos, op.sin, o=o, with_lse=True)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
+        bufs = op.buffers(3)
+        grads = ak.attention_bwd_cuda(q, k, v, o, lse, do, op.scale, op.cos, op.sin, out=bufs)
+        torch.cuda.synchronize()
+        refs = ak.attention_bwd_plain(q, k, v, o, do, op.scale, op.cos, op.sin)
+        errs, parts = [], []
+        for gname, a, b in zip(("dq", "dk", "dv"), grads, refs):
+            e = (a.float() - b.float()).abs().max().item()
+            bnd = KERNEL_BWD_RTOL * b.float().abs().max().item()
+            errs.append(e)
+            parts.append(f"{gname} {e:.3e} (bound {bnd:.3e})")
+            if not e <= bnd:
+                failed.append(f"{name} backward {gname}: max abs err {e:.3e} > {bnd:.3e}")
+        del grads, refs
+        ms = median_ms(lambda: ak.attention_bwd_cuda(q, k, v, o, lse, do, op.scale, op.cos,
+                                                     op.sin, out=bufs))
+        plain_ms = median_ms(lambda: ak.attention_bwd_plain(q, k, v, o, do, op.scale, op.cos,
+                                                            op.sin), reps=3)
+        n, p, l, dh = q.shape
+        ops, nbytes = attention_work(n * p, l, dh, True)
+        bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
+        qh, kh, vh = (t.requires_grad_(True) for t in sdpa_operands(q, k, v, op.cos, op.sin))
+        lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=op.scale)
+        doh = do.contiguous()
+        lib_ms = median_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), doh,
+                                                       retain_graph=True))
+        del qh, kh, vh, lib_out, doh, op, o, lse, do, bufs
+        torch.cuda.empty_cache()
+        print(f"kernel {name} backward q{tuple(q.shape)} stride{q.stride()}: max_abs_err "
+              f"{', '.join(parts)} ({KERNEL_BWD_RTOL} x max|plain|), kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, roofline {bound_ms:.4f} ms ({bound_by}), "
+              f"scaled_dot_product_attention backward {lib_ms:.4f} ms", flush=True)
+        rows.append({"name": name + "_bwd", "route": "cuda", "source": BWD_SOURCE,
+                     "replaces": ROUTE_REPLACES[name][1], "launches": 0, "max_abs_err": max(errs),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms})
     return rows, failed
 
 
@@ -393,7 +567,7 @@ def phase_gemm_kernels(g: torch.Generator):
 
 
 def reset_counts():
-    for entry in ENTRIES:
+    for entry in ATTENTION:
         entry.launches = entry.bwd_launches = 0
     for entry in GEMM_ENTRIES:
         entry.launches = 0
@@ -402,8 +576,8 @@ def reset_counts():
 def counts():
     """Every kernel's launches since reset_counts: the attention entries'
     forward (and backward, as <name>_bwd) and K4/K5/K6."""
-    out = {e.__name__: e.launches for e in ENTRIES}
-    out.update({e.__name__ + "_bwd": e.bwd_launches for e in ENTRIES})
+    out = {e.__name__: e.launches for e in ATTENTION}
+    out.update({e.__name__ + "_bwd": e.bwd_launches for e in ATTENTION})
     out.update({e.__name__: e.launches for e in GEMM_ENTRIES})
     return out
 
@@ -515,19 +689,16 @@ class SyntheticSamples:
                       is_exhaustive=True)
 
 
-def phase_train(g: torch.Generator, int8: bool = False):
-    """Trainer.fit over TRAIN_STEPS batches of TRAIN_BATCH at the full config;
-    with ``int8`` the base is in the int8 tier and GEMM_BWD_KERNEL is on.
-    Returns (launches, step times, peak bytes)."""
-    tag = "train-int8" if int8 else "train"
-    gemm_int8.GEMM_BWD_KERNEL = int8
-    cfg = model_config(int8)
+def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch: int, steps: int):
+    """Trainer.fit over ``steps`` batches of ``batch`` SyntheticSamples at
+    ``cfg``, adapters drawn live. Returns (launches, losses, step times,
+    peak bytes)."""
     with tempfile.TemporaryDirectory() as out_dir:
-        tcfg = TrainConfig(batch_size=TRAIN_BATCH, num_epochs=1, warmup_steps=0, logging_steps=1,
+        tcfg = TrainConfig(batch_size=batch, num_epochs=1, warmup_steps=0, logging_steps=1,
                            num_workers=2, seed=SEED, output_dir=out_dir)
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, LORA, tcfg, device="cuda")
-        loader = DataLoader(SyntheticSamples(cfg, TRAIN_BATCH * TRAIN_STEPS, SEED), TRAIN_BATCH,
+        trainer = Trainer(cfg, lora, tcfg, device="cuda")
+        loader = DataLoader(SyntheticSamples(cfg, batch * steps, SEED), batch,
                             shuffle=False, num_workers=2)
         stats = trainer.setup(steps_per_epoch=len(loader))
         with torch.no_grad():
@@ -535,7 +706,7 @@ def phase_train(g: torch.Generator, int8: bool = False):
                 if isinstance(m, LoRALinear) and m.lora_b is not None:
                     m.lora_b.normal_(0.0, 0.02, generator=g)  # the adapter branch is live
         torch.cuda.synchronize()
-        print(f"train: built {stats['total_parameters']} params "
+        print(f"{tag}: built {stats['total_parameters']} params "
               f"({stats['trainable_parameters']} trainable) in {time.perf_counter() - t0:.2f} s",
               flush=True)
         torch.cuda.reset_peak_memory_stats()
@@ -550,21 +721,43 @@ def phase_train(g: torch.Generator, int8: bool = False):
             records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in records]
     times = [r["step_time_s"] for r in records]
-    print(f"{tag}: {result['steps']} steps of batch {TRAIN_BATCH} in {wall:.2f} s; losses "
+    print(f"{tag}: {result['steps']} steps of batch {batch} in {wall:.2f} s; losses "
           f"{[round(x, 4) for x in losses]}; step time (s) {times} (first is the warm-up); "
           f"peak {peak / 2**30:.3f} GiB; launches { {k: v for k, v in launches.items() if v} }",
           flush=True)
+    if result["steps"] != steps or len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: {result['steps']} steps, losses {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, losses, times, peak
+
+
+def check_launches(tag: str, launches: dict, want: dict) -> None:
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"{tag} launches {launches}, expected {full}")
+
+
+def phase_train(g: torch.Generator, int8: bool = False):
+    """Trainer.fit over TRAIN_STEPS batches of TRAIN_BATCH at the full config;
+    with ``int8`` the base is in the int8 tier and GEMM_BWD_KERNEL is on.
+    Returns (launches, step times, peak bytes)."""
+    tag = "train-int8" if int8 else "train"
+    gemm_int8.GEMM_BWD_KERNEL = int8
+    cfg = model_config(int8)
+    launches, _, times, peak = fit(tag, g, cfg, LORA, TRAIN_BATCH, TRAIN_STEPS)
     n_global = len(cfg.vit_global_blocks)
     n_win = cfg.vit_depth - n_global
     s = TRAIN_STEPS
-    # windowed ViT blocks and fusion-encoder layers run under remat: forward,
-    # replay in the backward, then one backward each; global blocks once
-    want = dict.fromkeys(launches, 0)
-    want.update({"window_attention_rope_packed": 2 * n_win * s, "long_attention_rope_packed": n_global * s,
-                 "long_attention_packed": 2 * cfg.enc_layers * s,
-                 "window_attention_rope_packed_bwd": n_win * s,
-                 "long_attention_rope_packed_bwd": n_global * s,
-                 "long_attention_packed_bwd": cfg.enc_layers * s})
+    # windowed ViT blocks run under remat: forward, replay in the backward,
+    # then one backward each; global blocks once; the fusion-encoder layers
+    # run under remat too, but keep their attention output (no replay)
+    want = {"window_attention_rope_packed": 2 * n_win * s, "long_attention_rope_packed": n_global * s,
+            "long_attention_packed": cfg.enc_layers * s,
+            "window_attention_rope_packed_bwd": n_win * s,
+            "long_attention_rope_packed_bwd": n_global * s,
+            "long_attention_packed_bwd": cfg.enc_layers * s}
     if int8:
         # K4: the 4 GEMMs of every ViT block, again in the windowed blocks'
         # replays, and the text encoder's 3 per layer; K6: the dx of every
@@ -576,28 +769,191 @@ def phase_train(g: torch.Generator, int8: bool = False):
         want["int8_gemm_wres"] = (4 * cfg.vit_depth + 4 * n_win + 3 * cfg.text_layers) * s
         want["bf16_gemm_wres_nt"] = cfg.vit_depth * s * sum(
             gemm_int8.supported_nt(m, k, n) for k, n in vit_kn)
-    if result["steps"] != s or len(losses) != s or not all(np.isfinite(losses)):
-        raise AssertionError(f"{tag}: {result['steps']} steps, losses {losses}")
-    if launches != want:
-        raise AssertionError(f"{tag} launches {launches}, expected {want}")
-    del trainer
-    torch.cuda.empty_cache()
+    check_launches(tag, launches, want)
     gemm_int8.GEMM_BWD_KERNEL = False
     return launches, times, peak
 
 
-def small_models(int8: bool):
+def bench_step_launches(cfg: ModelConfig) -> dict:
+    """Kernel launches of one training step at bench.py's settings
+    (``wo_block_mid``, ``enc_remat_ffn``, no ``dec_remat``, the
+    ``bench_lora_config`` adapters, routing flags at their defaults, a
+    windowed first block):
+    * every attention layer's forward once: the windowed blocks keep their
+      attention output across their replay, the global blocks and the
+      encoder's attention run unrematted;
+    * every backward once, but for the first block's: the bench set adapts
+      fc1/fc2, not qkv, so no gradient is asked of anything before it;
+    * K4 for the 4 GEMMs of every ViT block and the text encoder's 3 per
+      layer, and again in the windowed blocks' replays: qkv (not the first
+      block's attention region, which nothing asks to replay), and fc1 and
+      fc2 (a replay runs its region up to its last saved tensor, fc2's
+      adapter input, where XLA drops fc2's product). No gradient crosses the
+      text encoder, which has no adapter."""
+    n_global = len(cfg.vit_global_blocks)
+    n_win = cfg.vit_depth - n_global
+    k1 = "window_attention_rope_packed" if cfg.vit_use_rope else "window_attention_packed"
+    return {k1: n_win, k1 + "_bwd": n_win - 1,
+            "long_attention_rope_packed": n_global, "long_attention_rope_packed_bwd": n_global,
+            "long_attention_packed": cfg.enc_layers, "long_attention_packed_bwd": cfg.enc_layers,
+            "int8_gemm_wres": 4 * cfg.vit_depth + 3 * cfg.text_layers + (n_win - 1) + 2 * n_win}
+
+
+def phase_bench_train(g: torch.Generator):
+    """Trainer.fit at bench.py's configuration and adapters, batch 8, one
+    warm-up and three timed steps."""
+    cfg = bench_model_config()
+    launches, losses, times, peak = fit("bench-train", g, cfg, bench_lora_config(), BENCH_BATCH,
+                                        TRAIN_STEPS)
+    per_step = bench_step_launches(cfg)
+    check_launches("bench-train", launches, {k: v * TRAIN_STEPS for k, v in per_step.items()})
+    return launches, times, peak
+
+
+ROUTES = (  # (tag, _PACKED, FUSE_ROPE, QKV_NATIVE, the windowed blocks' entry)
+    ("default", True, True, False, window_attention_rope_packed),
+    ("qkv-native", True, True, True, window_attention_rope_qkv),
+    ("fuse-rope-off", True, False, False, wa.window_attention_pair_packed),
+    ("packed-off", False, True, False, wa.window_attention_rope_grouped),
+    ("packed-off-fuse-rope-off", False, False, False, wa.window_attention_grouped),
+)
+# the same flags with vit_use_rope=False: the packed chain is K1' whatever
+# FUSE_ROPE says; W-p with RoPE is on no route (as in the JAX ViT, whose
+# packed chain takes every case its wrapper would pack)
+ROUTES_NO_ROPE = (
+    ("default", True, True, False, wa.window_attention_packed),
+    ("qkv-native", True, True, True, window_attention_qkv),
+    ("packed-off", False, True, False, wa.window_attention_grouped),
+)
+
+
+def set_route(packed: bool, fuse_rope: bool, qkv_native: bool) -> None:
+    wa._PACKED, wa.FUSE_ROPE, window_qkv.QKV_NATIVE = packed, fuse_rope, qkv_native
+
+
+def phase_routes(g: torch.Generator):
+    """One full-width bf16 model answers one request (raw outputs of
+    ``_forward``, one image, one prompt) per window route; each route's
+    counters show its entry and no other, and its outputs agree with the
+    default route's within SMALL_TOL. Then a ``vit_use_rope=False`` model
+    answers one per route through K1', W-qkv and W-g without RoPE. Returns
+    the forward launches by entry."""
+    launches = {}
+
+    def request(engine):
+        img, _ = engine.preprocess(np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3))
+                                   .astype(np.uint8))
+        ids = engine.tokenizer(PROMPTS[0], context_length=engine.cfg.text_context_length)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = engine._forward(torch.from_numpy(img).cuda(),
+                              torch.from_numpy(np.asarray(ids, np.int64)).cuda())
+        torch.cuda.synchronize()
+        return out, counts(), time.perf_counter() - t0
+
+    def live(engine):
+        with torch.no_grad():
+            for m in engine.model.modules():
+                if isinstance(m, LoRALinear) and m.lora_b is not None:
+                    m.lora_b.normal_(0.0, 0.02, generator=g)
+
+    cfg = model_config(False)
+    n_global = len(cfg.vit_global_blocks)
+    n_win = cfg.vit_depth - n_global
+    engine = SAM3LoRAInference(cfg, LORA, seed=SEED, device="cuda")
+    live(engine)
+    base = None
+    for tag, packed, fuse_rope, qkv_native, entry in ROUTES:
+        set_route(packed, fuse_rope, qkv_native)
+        out, got, secs = request(engine)
+        check_launches(f"routes {tag}", got, {
+            entry.__name__: n_win, "long_attention_rope_packed": n_global,
+            "long_attention_packed": cfg.enc_layers})
+        launches[entry.__name__] = launches.get(entry.__name__, 0) + got[entry.__name__]
+        if base is None:
+            base = out
+        errs = [(a - b).abs().max().item() for a, b in zip(out, base)]
+        print(f"routes {tag}: {entry.__name__} x {got[entry.__name__]}, {secs:.3f} s, max abs "
+              f"diff from the default route (scores, presence, boxes, masks) "
+              f"{[f'{e:.3e}' for e in errs]} (bound {SMALL_TOL})", flush=True)
+        if not max(errs) <= SMALL_TOL or not all(torch.isfinite(t).all() for t in out):
+            raise AssertionError(f"routes {tag}: outputs differ from the default route by {errs}")
+    set_route(True, True, False)
+    del engine, base
+    torch.cuda.empty_cache()
+
+    engine = SAM3LoRAInference(cfg.replace(vit_use_rope=False), LORA, seed=SEED, device="cuda")
+    live(engine)
+    base = None
+    for tag, packed, fuse_rope, qkv_native, entry in ROUTES_NO_ROPE:
+        set_route(packed, fuse_rope, qkv_native)
+        out, got, secs = request(engine)
+        # without RoPE the global blocks take the K3 entry, long_attention_packed
+        check_launches(f"routes no-rope {tag}", got, {
+            entry.__name__: n_win, "long_attention_packed": n_global + cfg.enc_layers})
+        launches[entry.__name__] = launches.get(entry.__name__, 0) + got[entry.__name__]
+        base = out if base is None else base
+        errs = [(a - b).abs().max().item() for a, b in zip(out, base)]
+        print(f"routes vit_use_rope=False {tag}: {entry.__name__} x {got[entry.__name__]}, "
+              f"{secs:.3f} s, max abs diff from its default route {[f'{e:.3e}' for e in errs]}",
+              flush=True)
+        if not max(errs) <= SMALL_TOL or not all(torch.isfinite(t).all() for t in out):
+            raise AssertionError(f"routes no-rope {tag}: outputs differ by {errs}")
+    set_route(True, True, False)
+    del engine
+    torch.cuda.empty_cache()
+
+    # W-p with RoPE is on no ViT route (the packed chain takes every case the
+    # wrapper would pack, as in the JAX ViT): its entry is
+    # dot_product_attention(impl="window") with the tables, forward and back
+    # at one image's windows
+    dh, ws = cfg.vit_dim // cfg.vit_heads, cfg.vit_window_size
+    shape = ((cfg.feat_size // ws) ** 2, cfg.vit_heads, ws * ws, dh)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    cos, sin = rope_tables(dh, ws, 1.0)
+    reset_counts()
+    out = dot_product_attention(q, k, v, scale=dh ** -0.5, impl="window", rope_cos=cos,
+                                rope_sin=sin)
+    out.backward(torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16))
+    torch.cuda.synchronize()
+    got = counts()
+    entry = wa.window_attention_rope_pair_packed.__name__
+    check_launches("routes dot_product_attention(impl='window', rope)", got,
+                   {entry: 1, entry + "_bwd": 1})
+    if not all(torch.isfinite(t).all() for t in (out, q.grad, k.grad, v.grad)):
+        raise AssertionError("dot_product_attention(impl='window', rope): non-finite output")
+    print(f"routes dot_product_attention(impl='window', rope) q{shape}: {entry} x 1, "
+          f"backward x 1, finite", flush=True)
+    launches[entry] = got[entry]
+    launches[entry + "_bwd"] = got[entry + "_bwd"]
+    return launches
+
+
+def phase_int8_bwd(g: torch.Generator):
+    """One full-width training step at the bench configuration with
+    ``base_quant="int8_bwd"`` (dx also an int8 product)."""
+    cfg = bench_model_config().replace(base_quant="int8_bwd")
+    launches, _, _, _ = fit("int8_bwd", g, cfg, bench_lora_config(), BENCH_BATCH, 1)
+    if not launches["int8_gemm_wres"]:
+        raise AssertionError("int8_bwd: no int8 GEMM ran")
+
+
+def small_models(int8: bool = False, **overrides):
     """A config small enough for the CPU, with the heads of the full model
     (ViT 2 x 64, encoder 4 x 32) so the kernels sit on the path: fp32 on the
     CPU and bf16 on the card, same weights, live adapters. With ``int8`` its
     ViT GEMMs alone are in the int8 tier, as in the full config
     (base_quant_min_dim at the ViT width; d_model 64, 2 heads x 32, keeps the
     geometry encoder's 66-wide projection under the gate), the base quantized
-    on each side from the same fp32 weights."""
+    on each side from the same fp32 weights. ``overrides`` go to both sides'
+    configs, but ``param_dtype`` (the storage of the frozen base) to the
+    card's alone."""
     widths = dict(vit_dim=128, vit_heads=2, d_model=128, enc_heads=4)
     if int8:
         widths.update(d_model=64, enc_heads=2, base_quant="int8", base_quant_min_dim=128)
-    cfg = tiny_model_config(flash_attention_min_seq=16, **widths)
+    param_dtype = overrides.pop("param_dtype", "float32")
+    cfg = tiny_model_config(flash_attention_min_seq=16, **{**widths, **overrides})
     lora = LoRAConfig(rank=4, alpha=8.0, target_modules=("qkv", "fc1", "linear1"))
     cpu = build_sam3_image_model(cfg, lora=lora, device="cpu")
     init_model(cpu, torch.Generator().manual_seed(SEED))
@@ -605,9 +961,10 @@ def small_models(int8: bool):
         for m in cpu.modules():
             if isinstance(m, LoRALinear) and m.lora_b is not None:
                 m.lora_b.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(SEED + 1))
-    gpu = build_sam3_image_model(cfg.replace(dtype="bfloat16"), lora=lora, device="cuda")
+    gpu = build_sam3_image_model(cfg.replace(dtype="bfloat16", param_dtype=param_dtype),
+                                 lora=lora, device="cuda")
     gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
-    if int8:
+    if cfg.base_quant != "none":
         for model in (cpu, gpu):
             if not quant.prequantize_model(model, cfg.base_quant_min_dim):
                 raise AssertionError("the small int8 config quantized no layer")
@@ -628,12 +985,47 @@ def small_batch(cfg, with_targets: bool):
     return collate([ds.load(i) for i in range(2)], cfg=cfg)
 
 
-def phase_small_reference(int8: bool = False):
+def small_train_step(model, batch):
+    """(loss, matching, adapter gradients) of one training step."""
+    named = trainable_parameters(model)
+    model.zero_grad(set_to_none=True)
+    model.train()
+    model.dot_prod_scoring.prompt_mlp.drop.rate = 0.0  # the CPU and card RNGs differ
+    out = model(batch)
+    loss = compute_losses(out, batch.targets)["core_loss"]
+    loss.backward()
+    return loss.item(), out["indices"].cpu(), {n: p.grad.float().cpu() for n, p in named}
+
+
+def compare_step(tag: str, ref, got, grad_rtol: float) -> None:
+    (ref_loss, ref_idx, ref_g), (loss, idx, grads) = ref, got
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    grad_errs = {n: ((grads[n] - ref_g[n]).norm() / ref_g[n].norm()).item() for n in ref_g}
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"{tag} train step: loss {loss:.5f} vs CPU fp32 {ref_loss:.5f} (rel {loss_err:.3e}, "
+          f"bound {LOSS_RTOL}); matching equal {torch.equal(idx, ref_idx)}; adapter grads "
+          f"rel err max {grad_errs[worst]:.3e} ({worst}), median "
+          f"{statistics.median(grad_errs.values()):.3e} (bound {grad_rtol})", flush=True)
+    if not torch.equal(idx, ref_idx):
+        raise AssertionError(f"{tag}: the card's matching differs from the CPU's")
+    if not loss_err <= LOSS_RTOL or not grad_errs[worst] <= grad_rtol:
+        raise AssertionError(f"{tag} training step disagrees: loss {loss_err:.3e}, "
+                             f"grad {grad_errs[worst]:.3e}")
+
+
+BENCH_SMALL = dict(param_dtype="bfloat16", vit_remat_policy="wo_block_mid", enc_remat=False,
+                   enc_remat_ffn=True, dec_remat=True)
+
+
+def phase_small_reference(tag: str = "small", int8: bool = False, routes: bool = False,
+                          **overrides):
     """The small config's eval forward and one training step, the card
-    against the CPU; with ``int8`` its ViT in the int8 tier (bounds above)."""
-    tag = "small-int8" if int8 else "small"
+    against the CPU; with ``int8`` its ViT in the int8 tier (bounds above);
+    ``overrides`` (BENCH_SMALL) change both configs. With ``routes``, one
+    training step on the card per window route against the same CPU step;
+    returns each route entry's backward launches."""
     grad_rtol = GRAD_RTOL_INT8 if int8 else GRAD_RTOL
-    cfg, cpu, gpu = small_models(int8)
+    cfg, cpu, gpu = small_models(int8, **overrides)
     images_batch = small_batch(cfg, with_targets=False)
     with torch.no_grad():
         ref = cpu(images_batch)
@@ -652,29 +1044,26 @@ def phase_small_reference(int8: bool = False):
 
     # one training step: loss, matching and every adapter gradient
     batch = small_batch(cfg, with_targets=True)
-    results = []
-    for model, b in ((cpu, batch), (gpu, batch_to_device(batch, "cuda"))):
-        named = trainable_parameters(model)
-        model.train()
-        model.dot_prod_scoring.prompt_mlp.drop.rate = 0.0  # the CPU and card RNGs differ
-        out = model(b)
-        loss = compute_losses(out, b.targets)["core_loss"]
-        loss.backward()
-        results.append((loss.item(), out["indices"].cpu(),
-                        {n: p.grad.float().cpu() for n, p in named}))
-    (ref_loss, ref_idx, ref_g), (loss, idx, grads) = results
-    loss_err = abs(loss - ref_loss) / abs(ref_loss)
-    grad_errs = {n: ((grads[n] - ref_g[n]).norm() / ref_g[n].norm()).item() for n in ref_g}
-    worst = max(grad_errs, key=grad_errs.get)
-    print(f"{tag} train step: loss {loss:.5f} vs CPU fp32 {ref_loss:.5f} (rel {loss_err:.3e}, "
-          f"bound {LOSS_RTOL}); matching equal {torch.equal(idx, ref_idx)}; adapter grads "
-          f"rel err max {grad_errs[worst]:.3e} ({worst}), median "
-          f"{statistics.median(grad_errs.values()):.3e} (bound {grad_rtol})", flush=True)
-    if not torch.equal(idx, ref_idx):
-        raise AssertionError("the card's matching differs from the CPU's")
-    if not loss_err <= LOSS_RTOL or not grad_errs[worst] <= grad_rtol:
-        raise AssertionError(f"{tag} training step disagrees: loss {loss_err:.3e}, "
-                             f"grad {grad_errs[worst]:.3e}")
+    ref_step = small_train_step(cpu, batch)
+    gpu_batch = batch_to_device(batch, "cuda")
+    if not routes:
+        compare_step(tag, ref_step, small_train_step(gpu, gpu_batch), grad_rtol)
+        return {}
+    bwd = {}
+    for route, packed, fuse_rope, qkv_native, entry in (ROUTES if cfg.vit_use_rope
+                                                        else ROUTES_NO_ROPE):
+        set_route(packed, fuse_rope, qkv_native)
+        reset_counts()
+        got = small_train_step(gpu, gpu_batch)
+        torch.cuda.synchronize()
+        if not entry.launches or not entry.bwd_launches:
+            raise AssertionError(f"{tag} {route}: {entry.__name__} ran {entry.launches} forward, "
+                                 f"{entry.bwd_launches} backward")
+        name = entry.__name__ + "_bwd"
+        bwd[name] = bwd.get(name, 0) + entry.bwd_launches
+        compare_step(f"{tag} {route} ({entry.__name__})", ref_step, got, grad_rtol)
+    set_route(True, True, False)
+    return bwd
 
 
 def main():
@@ -703,16 +1092,33 @@ def main():
           f"vs {[round(t, 4) for t in lat]}, peak {serve_peak8 / 2**30:.3f} vs "
           f"{serve_peak / 2**30:.3f} GiB; training step (s) {steps8[1:]} vs {steps[1:]} after "
           f"warm-up, peak {train_peak8 / 2**30:.3f} vs {train_peak / 2**30:.3f} GiB", flush=True)
+    bench, _, _ = phase_bench_train(g)
+    routes = phase_routes(g)
+    phase_int8_bwd(g)
+    phase_small_reference()
+    phase_small_reference("small-int8", int8=True)
+    phase_small_reference("small-bench", int8=True, **BENCH_SMALL)
+    phase_small_reference("small-bench-int8_bwd", int8=True, **{**BENCH_SMALL, "base_quant": "int8_bwd"})
+    route_bwd = collections.Counter(phase_small_reference("small-routes", routes=True))
+    route_bwd.update(phase_small_reference("small-routes-no-rope", routes=True, vit_use_rope=False))
+    route_names = {e.__name__ for e in WINDOW_ROUTES}
     for row in rows:
         name = row["name"]
-        if name in ("int8_gemm_wres", "int8_lora_gemm_wres"):
-            row["launches"] = serve8[name] + train8[name]
+        base = name[:-len("_bwd")] if name.endswith("_bwd") else name
+        if base in route_names:
+            # forward: the full-width request of its route; backward: the
+            # small config's training step of its route; W-p with RoPE: its
+            # dot_product_attention call, forward and back
+            row["launches"] = routes.get(name, 0) + route_bwd.get(name, 0)
+        elif name in ("int8_gemm_wres", "int8_lora_gemm_wres"):
+            row["launches"] = serve8[name] + train8[name] + bench[name]
         elif name == "bf16_gemm_wres_nt":
             row["launches"] = train8[name]
         else:
-            row["launches"] = train[name] if name.endswith("_bwd") else serve[name]
-    phase_small_reference()
-    phase_small_reference(int8=True)
+            row["launches"] = (train[name] + bench[name]) if name.endswith("_bwd") else serve[name]
+    idle = [row["name"] for row in rows if not row["launches"]]
+    if idle:
+        raise AssertionError(f"kernels no path launched: {idle}")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -6,7 +6,8 @@ dropout, target modules, six component flags), ``TrainConfig`` (the
 ``training:`` and ``output:`` YAML sections), ``tiny_model_config`` and
 ``load_yaml_config``: the same fields, defaults and methods as
 ``sam3_lora_tpu/config.py``, so a config means the same model in both
-packages (``tests/test_torch_config.py`` holds them equal). The port imports
+packages (``tests/test_torch_config.py`` holds them equal). Also the copies
+of ``bench.py``'s ``bench_model_config`` and ``bench_lora_config``. The port imports
 nothing of the JAX package; code of the port, and scripts that drive it,
 import these names from here.
 """
@@ -14,6 +15,7 @@ import these names from here.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -45,10 +47,9 @@ class ModelConfig:
     # the JAX ViT scans its windowed-block runs; here it names the layout of
     # the checkpoints and adapter files (scan_blocks_{g}.block.*)
     vit_scan_blocks: bool = True
-    # rematerialization of ViT blocks in training: "windows_only" (the port's
-    # policy) replays the windowed blocks in the backward and runs the global
-    # blocks once; "full", "block_mid" and "wo_block_mid" are the JAX
-    # package's other policies
+    # rematerialization of ViT blocks in training (models/vit.py): "full",
+    # "block_mid", "windows_only" (the windowed blocks replay in the backward,
+    # the global blocks run once) or "wo_block_mid" (bench.py's)
     vit_remat_policy: str = "windows_only"
     # rematerialize the fusion-encoder layers (or only their FFN) and the
     # decoder layers in training
@@ -129,7 +130,7 @@ class ModelConfig:
     #   "none"     — GEMMs in the compute dtype
     #   "int8"     — forward GEMMs W8A8 (int8 weights and per-row dynamic
     #                int8 activations); backward dx against dequant(W)
-    #   "int8_bwd" — dx GEMMs also int8 (not ported; the JAX package has it)
+    #   "int8_bwd" — dx GEMMs also int8
     # Applies to LoRALinear GEMMs with min(in, out) >= base_quant_min_dim —
     # by default the 1024-wide ViT trunk + text encoder, not the 256-wide
     # detection heads.
@@ -185,6 +186,31 @@ def tiny_model_config(**overrides) -> ModelConfig:
     )
     base.update(overrides)
     return ModelConfig(**base)
+
+
+def _enc_remat_env() -> str:
+    v = os.environ.get("BENCH_ENC_REMAT", "ffn")
+    if v not in ("0", "1", "ffn"):
+        raise ValueError(f"BENCH_ENC_REMAT must be 0|1|ffn, got {v!r}")
+    return v
+
+
+def bench_model_config() -> ModelConfig:
+    """The configuration of the step ``bench.py`` times (its
+    ``bench_model_config``), read from the same ``BENCH_*`` environment
+    variables with the same defaults: bf16 compute and frozen-base storage,
+    the int8 tier, ``wo_block_mid`` ViT remat, encoder remat of the FFN
+    only, no decoder remat, flat ViT blocks."""
+    return ModelConfig(
+        dtype="bfloat16",
+        param_dtype=os.environ.get("BENCH_PARAM_DTYPE", "bfloat16"),
+        base_quant=os.environ.get("BENCH_QUANT", "int8"),
+        vit_remat_policy=os.environ.get("BENCH_REMAT", "wo_block_mid"),
+        enc_remat=_enc_remat_env() == "1",
+        enc_remat_ffn=_enc_remat_env() == "ffn",
+        dec_remat=os.environ.get("BENCH_DEC_REMAT", "0") == "1",
+        vit_scan_blocks=os.environ.get("BENCH_SCAN", "0") == "1",
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +277,23 @@ class LoRAConfig:
         d = dataclasses.asdict(self)
         d["target_modules"] = list(d["target_modules"])
         return d
+
+
+def bench_lora_config() -> LoRAConfig:
+    """``bench.py``'s adapters: rank 32, alpha 64, every component. Like the
+    reference, ``should_apply`` never adapts an ``out_proj``, so this names
+    the MLP and FFN layers of the ViT, the geometry encoder, the fusion
+    encoder and the decoder."""
+    return LoRAConfig(
+        rank=32,
+        alpha=64.0,
+        target_modules=(
+            "q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2",
+            "linear1", "linear2",
+        ),
+        apply_to_geometry_encoder=True,
+        apply_to_mask_decoder=True,
+    )
 
 
 # ---------------------------------------------------------------------------

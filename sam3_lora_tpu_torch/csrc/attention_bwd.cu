@@ -48,13 +48,12 @@ namespace {
 
 using namespace sam3;
 
-// D[n, p, l] = sum_d dO[n, l, p*DH + d] * O[n, l, p*DH + d] in fp32: one warp
-// per (n, l) row, 16-byte chunks, a shuffle sum within each head's lanes.
+// D[n, p, l] = sum_d dO[n, p, l, d] * O[n, p, l, d] in fp32: one warp per
+// (n, l) row, 16-byte chunks, a shuffle sum within each head's lanes.
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
 rowdot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-              float* __restrict__ D, int N, int L, int P, long long o_sn,
-              long long o_sl, long long d_sn, long long d_sl) {
+              float* __restrict__ D, int N, int L, int P, Strides so, Strides sd) {
   const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= (long long)N * L) return;  // uniform across the warp
   const long long n = row / L;
@@ -62,14 +61,15 @@ rowdot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const int lane = threadIdx.x % 32;
   constexpr int G = DH / 8;  // lanes per head (divides 32)
   const int chunks = P * G;
-  const bf16* orow = o + n * o_sn + (long long)l * o_sl;
-  const bf16* drow = dout + n * d_sn + (long long)l * d_sl;
+  const bf16* orow = o + so.at(n, 0) + (long long)l * so.l;
+  const bf16* drow = dout + sd.at(n, 0) + (long long)l * sd.l;
   for (int c0 = 0; c0 < chunks; c0 += 32) {
     const int c = c0 + lane;
     float acc = 0.f;
     if (c < chunks) {
-      const uint4 a = *reinterpret_cast<const uint4*>(orow + c * 8);
-      const uint4 b = *reinterpret_cast<const uint4*>(drow + c * 8);
+      const int h = c / G, d = (c % G) * 8;  // head, first of its 8 elements
+      const uint4 a = *reinterpret_cast<const uint4*>(orow + h * so.p + d);
+      const uint4 b = *reinterpret_cast<const uint4*>(drow + h * sd.p + d);
       const bf16* pa = reinterpret_cast<const bf16*>(&a);
       const bf16* pb = reinterpret_cast<const bf16*>(&b);
 #pragma unroll
@@ -132,10 +132,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const float* __restrict__ lse, const float* __restrict__ D,
             bf16* __restrict__ dk, bf16* __restrict__ dv,
             const float* __restrict__ cos_t, const float* __restrict__ sin_t, int L,
-            int P, long long q_sn, long long q_sl, long long k_sn, long long k_sl,
-            long long v_sn, long long v_sl, long long do_sn, long long do_sl,
-            long long dk_sn, long long dk_sl, long long dv_sn, long long dv_sl,
-            float scale) {
+            int P, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+            Strides sdv, float scale) {
   using Lay = Layout<DH>;
   constexpr int LDH = Lay::LDH;
   constexpr int KS = DH / 16;  // k16 steps over the head dim
@@ -156,9 +154,9 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = lane & 3;
 
-  load_tile<DH, ROPE>(Ks, k + n * k_sn + (long long)k0 * k_sl + p * DH, k_sl,
+  load_tile<DH, ROPE>(Ks, k + sk.at(n, p) + (long long)k0 * sk.l, sk.l,
                       min(BK, L - k0), cos_t, sin_t, k0);
-  load_tile<DH, false>(Vs, v + n * v_sn + (long long)k0 * v_sl + p * DH, v_sl,
+  load_tile<DH, false>(Vs, v + sv.at(n, p) + (long long)k0 * sv.l, sv.l,
                        min(BK, L - k0), nullptr, nullptr, 0);
   __syncthreads();
   uint32_t kf[KS][4], vf[KS][4];  // this warp's 16 keys of K and V as A fragments
@@ -180,9 +178,9 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int q0 = 0; q0 < L; q0 += BQ) {
     const int q_valid = min(BQ, L - q0);
     __syncthreads();  // every warp is done with the previous query tile
-    load_tile<DH, ROPE>(Qs, q + n * q_sn + (long long)q0 * q_sl + p * DH, q_sl, q_valid,
+    load_tile<DH, ROPE>(Qs, q + sq.at(n, p) + (long long)q0 * sq.l, sq.l, q_valid,
                         cos_t, sin_t, q0);
-    load_tile<DH, false>(dOs, dout + n * do_sn + (long long)q0 * do_sl + p * DH, do_sl,
+    load_tile<DH, false>(dOs, dout + sdo.at(n, p) + (long long)q0 * sdo.l, sdo.l,
                          q_valid, nullptr, nullptr, 0);
     if (threadIdx.x < BQ) {
       const int r = threadIdx.x;  // rows past L get P = 0 through an infinite LSE
@@ -242,8 +240,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const int row0 = k0 + warp * 16;
-  store_rows<DH, ROPE>(dka, dk + n * dk_sn + p * DH, dk_sl, row0, L, scale, cos_t, sin_t);
-  store_rows<DH, false>(dva, dv + n * dv_sn + p * DH, dv_sl, row0, L, 1.f, nullptr, nullptr);
+  store_rows<DH, ROPE>(dka, dk + sdk.at(n, p), sdk.l, row0, L, scale, cos_t, sin_t);
+  store_rows<DH, false>(dva, dv + sdv.at(n, p), sdv.l, row0, L, 1.f, nullptr, nullptr);
 }
 
 template <int DH, bool ROPE>
@@ -252,10 +250,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ v, const bf16* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ D,
           bf16* __restrict__ dq, const float* __restrict__ cos_t,
-          const float* __restrict__ sin_t, int L, int P, long long q_sn,
-          long long q_sl, long long k_sn, long long k_sl, long long v_sn,
-          long long v_sl, long long do_sn, long long do_sl, long long dq_sn,
-          long long dq_sl, float scale) {
+          const float* __restrict__ sin_t, int L, int P, Strides sq, Strides sk,
+          Strides sv, Strides sdo, Strides sdq, float scale) {
   using Lay = Layout<DH>;
   constexpr int LDH = Lay::LDH;
   constexpr int KS = DH / 16;
@@ -275,9 +271,9 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   const int q_valid = min(BQ, L - q0);
 
-  load_tile<DH, ROPE>(Qs, q + n * q_sn + (long long)q0 * q_sl + p * DH, q_sl, q_valid,
+  load_tile<DH, ROPE>(Qs, q + sq.at(n, p) + (long long)q0 * sq.l, sq.l, q_valid,
                       cos_t, sin_t, q0);
-  load_tile<DH, false>(dOs, dout + n * do_sn + (long long)q0 * do_sl + p * DH, do_sl,
+  load_tile<DH, false>(dOs, dout + sdo.at(n, p) + (long long)q0 * sdo.l, sdo.l,
                        q_valid, nullptr, nullptr, 0);
   __syncthreads();
   uint32_t qf[KS][4], df[KS][4];  // this warp's 16 rows of Q and dO
@@ -295,8 +291,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const float sl2 = scale * LOG2E;
-  const bf16* kb = k + n * k_sn + p * DH;
-  const bf16* vb = v + n * v_sn + p * DH;
+  const bf16* kb = k + sk.at(n, p);
+  const bf16* vb = v + sv.at(n, p);
   float dqa[OT][4];
 #pragma unroll
   for (int j = 0; j < OT; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
@@ -304,8 +300,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k0 = 0; k0 < L; k0 += BK) {
     const int kv_valid = min(BK, L - k0);
     __syncthreads();
-    load_tile<DH, ROPE>(Ks, kb + (long long)k0 * k_sl, k_sl, kv_valid, cos_t, sin_t, k0);
-    load_tile<DH, false>(Vs, vb + (long long)k0 * v_sl, v_sl, kv_valid, nullptr, nullptr, 0);
+    load_tile<DH, ROPE>(Ks, kb + (long long)k0 * sk.l, sk.l, kv_valid, cos_t, sin_t, k0);
+    load_tile<DH, false>(Vs, vb + (long long)k0 * sv.l, sv.l, kv_valid, nullptr, nullptr, 0);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
@@ -356,8 +352,8 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  store_rows<DH, ROPE>(dqa, dq + n * dq_sn + p * DH, dq_sl, q0 + warp * 16, L, scale,
-                       cos_t, sin_t);
+  store_rows<DH, ROPE>(dqa, dq + sdq.at(n, p), sdq.l, q0 + warp * 16, L, scale, cos_t,
+                       sin_t);
 }
 
 struct BwdArgs {
@@ -366,8 +362,7 @@ struct BwdArgs {
   float* D;
   bf16 *dq, *dk, *dv;
   int n, l, p;
-  long long q_sn, q_sl, k_sn, k_sl, v_sn, v_sl, o_sn, o_sl, do_sn, do_sl;
-  long long dq_sn, dq_sl, dk_sn, dk_sl, dv_sn, dv_sl;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   float scale;
 };
 
@@ -375,7 +370,7 @@ template <int DH, bool ROPE>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const long long rows = (long long)a.n * a.l;
   rowdot_kernel<DH><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
-      a.o, a.dout, a.D, a.n, a.l, a.p, a.o_sn, a.o_sl, a.do_sn, a.do_sl);
+      a.o, a.dout, a.D, a.n, a.l, a.p, a.so, a.sdo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -386,9 +381,8 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return err;
   kdkdv<<<grid, THREADS, dkdv_bytes, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.D, a.dk, a.dv, a.cos_t, a.sin_t, a.l, a.p, a.q_sn,
-      a.q_sl, a.k_sn, a.k_sl, a.v_sn, a.v_sl, a.do_sn, a.do_sl, a.dk_sn, a.dk_sl, a.dv_sn,
-      a.dv_sl, a.scale);
+      a.q, a.k, a.v, a.dout, a.lse, a.D, a.dk, a.dv, a.cos_t, a.sin_t, a.l, a.p, a.sq,
+      a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -396,34 +390,34 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, tiles);
   if (err != cudaSuccess) return err;
   kdq<<<grid, THREADS, tiles, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.D, a.dq, a.cos_t, a.sin_t, a.l, a.p, a.q_sn, a.q_sl,
-      a.k_sn, a.k_sl, a.v_sn, a.v_sl, a.do_sn, a.do_sl, a.dq_sn, a.dq_sl, a.scale);
+      a.q, a.k, a.v, a.dout, a.lse, a.D, a.dq, a.cos_t, a.sin_t, a.l, a.p, a.sq, a.sk,
+      a.sv, a.sdo, a.sdq, a.scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Strides are in elements; q/k/v/o/dout and
-// the outputs dq/dk/dv are (n, l, p*dh) bf16 with a contiguous last dim; lse
-// is the forward's (n, p, l) fp32 log-sum-exp; D is (n, p, l) fp32 scratch.
+// C entry point, bound with ctypes. q/k/v/o/dout and the outputs dq/dk/dv are
+// (n, p, l, dh) bf16 views, each given by its (n, p, l) strides in elements
+// (`strides`: 8 x 3, in that order), with a contiguous last dim; lse is the
+// forward's (n, p, l) fp32 log-sum-exp; D is (n, p, l) fp32 scratch.
 // cos_t/sin_t are (l, dh/2) fp32 tables, or null for no RoPE. Launches three
 // kernels on `stream`; returns the first cudaError_t that is not 0, or 0.
 extern "C" int sam3_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const void* lse, void* D, void* dq, void* dk, void* dv, const void* cos_t,
-    const void* sin_t, int n, int l, int p, int dh, long long q_sn, long long q_sl,
-    long long k_sn, long long k_sl, long long v_sn, long long v_sl, long long o_sn,
-    long long o_sl, long long do_sn, long long do_sl, long long dq_sn, long long dq_sl,
-    long long dk_sn, long long dk_sl, long long dv_sn, long long dv_sl, float scale,
-    void* stream) {
+    const void* sin_t, int n, int l, int p, int dh, const long long* strides,
+    float scale, void* stream) {
+  const long long* s = strides;
   const BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(o),
                   static_cast<const bf16*>(dout), static_cast<const float*>(lse),
                   static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
                   static_cast<float*>(D), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                  static_cast<bf16*>(dv), n, l, p, q_sn, q_sl, k_sn, k_sl, v_sn, v_sl,
-                  o_sn, o_sl, do_sn, do_sl, dq_sn, dq_sl, dk_sn, dk_sl, dv_sn, dv_sl,
-                  scale};
+                  static_cast<bf16*>(dv), n, l, p,
+                  {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
+                  {s[9], s[10], s[11]}, {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
+                  {s[18], s[19], s[20]}, {s[21], s[22], s[23]}, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool rope = cos_t != nullptr;
   if (dh == 64) return rope ? launch_bwd<64, true>(a, st) : launch_bwd<64, false>(a, st);

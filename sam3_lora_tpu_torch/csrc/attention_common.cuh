@@ -29,6 +29,16 @@ constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Where an (n, p, l, dh) operand keeps its elements: the strides, in elements,
+// of sequence n, head p and row l; the dh elements of a row are contiguous.
+// Packed (N, L, P*DH) operands have p = DH; head-major (B, H, L, D) ones any.
+struct Strides {
+  long long n, p, l;
+  __device__ __forceinline__ long long at(long long ni, int pi) const {
+    return ni * n + pi * p;
+  }
+};
+
 template <int DH>
 struct Layout {
   static constexpr int LDH = DH + 8;  // bf16 row stride: conflict-free ldmatrix

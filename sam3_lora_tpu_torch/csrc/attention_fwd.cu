@@ -1,10 +1,17 @@
-// Packed multi-head attention forward for Hopper (sm_90a), one source for the
-// three attention entry points of the serving path:
+// Multi-head attention forward for Hopper (sm_90a), one source for every
+// attention entry point of the port:
 //
 //   window_attention_rope_packed  replaces sam3_lora_tpu/ops/window_attention.py
 //                                 ::window_attention_rope_packed (Pallas kernel
 //                                 _fwd_kernel_rope_packed), the 28 windowed ViT
 //                                 blocks: 576-token windows, 16 heads x 64.
+//   window_attention_packed       replaces ::window_attention_packed (K1', the
+//                                 same without RoPE, _fwd_kernel_packed).
+//   window_attention[_rope]_grouped  replace ::_window_pallas (W-g, head-grouped
+//   window_attention[_rope]_pair_packed  (B, H, L, D)) and ::_window_pallas_packed
+//                                 (W-p, the same packed in head pairs).
+//   window_attention[_rope]_qkv   replaces sam3_lora_tpu/ops/window_qkv.py
+//                                 ::_call_fwd (W-qkv, off the qkv projection).
 //   long_attention_rope_packed    replaces sam3_lora_tpu/ops/long_attention.py
 //                                 ::long_attention_rope_packed (_make_fwd_kernel
 //                                 with rope), the 4 global ViT blocks: 5184
@@ -14,11 +21,13 @@
 //                                 fusion-encoder self-attentions: 5184 tokens,
 //                                 8 heads x 32.
 //
-// All three are unmasked, bias-free, non-causal attention over P heads of width
-// DH that sit side by side in the last dim of (N, L, P*DH) operands, with an
-// optional rotate-half RoPE on q and k from (L, DH/2) fp32 cos/sin tables.
-// Rows may be strided (the ViT passes q/k/v as views of its qkv projection
-// output); the last dim must be contiguous.
+// All are unmasked, bias-free, non-causal attention over N x P heads of width
+// DH, with an optional rotate-half RoPE on q and k from (L, DH/2) fp32 cos/sin
+// tables. They differ only in where the heads lie, which the TPU kernels had
+// to fix in their block shapes; here each operand is an (N, P, L, DH) view with
+// its own (n, p, l) strides (Strides in attention_common.cuh), so the packed
+// (N, L, P*DH) layout, views of the qkv projection output and head-major
+// (B, H, L, D) tensors are all read in place. The last dim must be contiguous.
 //
 // What bounds it on the H100: each (query, key) pair costs 4*DH flops of QK^T
 // and PV against 4*DH bytes of bf16 K/V that every 64-row query tile re-reads
@@ -54,10 +63,8 @@ __global__ void __launch_bounds__(THREADS)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, const float* __restrict__ cos_t,
-                     const float* __restrict__ sin_t, int L, int P,
-                     long long q_sn, long long q_sl, long long k_sn,
-                     long long k_sl, long long v_sn, long long v_sl,
-                     long long o_sn, long long o_sl, float scale) {
+                     const float* __restrict__ sin_t, int L, int P, Strides sq,
+                     Strides sk, Strides sv, Strides so, float scale) {
   using Lay = Layout<DH>;
   constexpr int LDH = Lay::LDH;
   constexpr int KS = DH / 16;  // k16 steps over the head dim
@@ -72,12 +79,12 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long n = head / P;
   const int p = head % P;
   const int q0 = blockIdx.x * BQ;
-  const bf16* kb = k + n * k_sn + p * DH;
-  const bf16* vb = v + n * v_sn + p * DH;
+  const bf16* kb = k + sk.at(n, p);
+  const bf16* vb = v + sv.at(n, p);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
 
-  load_tile<DH, ROPE>(Qs, q + n * q_sn + (long long)q0 * q_sl + p * DH, q_sl,
+  load_tile<DH, ROPE>(Qs, q + sq.at(n, p) + (long long)q0 * sq.l, sq.l,
                       min(BQ, L - q0), cos_t, sin_t, q0);
   __syncthreads();
   uint32_t qf[KS][4];  // this warp's 16 query rows as A fragments
@@ -94,8 +101,8 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int k0 = 0; k0 < L; k0 += BK) {
     const int kv_valid = min(BK, L - k0);
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DH, ROPE>(Ks, kb + (long long)k0 * k_sl, k_sl, kv_valid, cos_t, sin_t, k0);
-    load_tile<DH, false>(Vs, vb + (long long)k0 * v_sl, v_sl, kv_valid, nullptr, nullptr, 0);
+    load_tile<DH, ROPE>(Ks, kb + (long long)k0 * sk.l, sk.l, kv_valid, cos_t, sin_t, k0);
+    load_tile<DH, false>(Vs, vb + (long long)k0 * sv.l, sv.l, kv_valid, nullptr, nullptr, 0);
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 keys per warp, fp32 in registers
@@ -176,7 +183,7 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + warp * 16 + g + r * 8;
     if (row >= L) continue;
     const float inv = 1.f / l_run[r];
-    bf16* dst = o + n * o_sn + (long long)row * o_sl + p * DH + t * 2;
+    bf16* dst = o + so.at(n, p) + (long long)row * so.l + t * 2;
 #pragma unroll
     for (int j = 0; j < OT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
@@ -190,9 +197,7 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH, bool ROPE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    const float* cos_t, const float* sin_t, int n, int l, int p,
-                   long long q_sn, long long q_sl, long long k_sn,
-                   long long k_sl, long long v_sn, long long v_sl,
-                   long long o_sn, long long o_sl, float scale,
+                   Strides sq, Strides sk, Strides sv, Strides so, float scale,
                    cudaStream_t stream) {
   constexpr int bytes = 3 * Layout<DH>::tile * sizeof(bf16);  // Q, K, V
   auto kern = attention_fwd_kernel<DH, ROPE>;
@@ -203,31 +208,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, cos_t, sin_t, l, p,
-      q_sn, q_sl, k_sn, k_sl, v_sn, v_sl, o_sn, o_sl, scale);
+      sq, sk, sv, so, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Strides are in elements. lse is an
-// (n, p, l) fp32 output, or null when no gradient is needed. cos_t/sin_t are
-// (l, dh/2) fp32 tables, or null for no RoPE. Returns the cudaError_t of the
-// launch (0 = success).
+// C entry point, bound with ctypes. q, k, v and o are (n, p, l, dh) bf16
+// views, each given by its (n, p, l) strides in elements (`strides`: 4 x 3, in
+// that order), with a contiguous last dim. lse is an (n, p, l) fp32 output, or
+// null when no gradient is needed. cos_t/sin_t are (l, dh/2) fp32 tables, or
+// null for no RoPE. Returns the cudaError_t of the launch (0 = success).
 extern "C" int sam3_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, const void* cos_t,
                                   const void* sin_t, int n, int l, int p, int dh,
-                                  long long q_sn, long long q_sl, long long k_sn,
-                                  long long k_sl, long long v_sn, long long v_sl,
-                                  long long o_sn, long long o_sl, float scale,
-                                  void* stream) {
+                                  const long long* strides, float scale, void* stream) {
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   float* m = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool rope = c != nullptr;
-#define SAM3_LAUNCH(DH_, ROPE_)                                                   \
-  launch<DH_, ROPE_>(q, k, v, o, m, c, s, n, l, p, q_sn, q_sl, k_sn, k_sl, v_sn, \
-                     v_sl, o_sn, o_sl, scale, st)
+  const long long* z = strides;
+  const Strides sq{z[0], z[1], z[2]}, sk{z[3], z[4], z[5]}, sv{z[6], z[7], z[8]},
+      so{z[9], z[10], z[11]};
+#define SAM3_LAUNCH(DH_, ROPE_) \
+  launch<DH_, ROPE_>(q, k, v, o, m, c, s, n, l, p, sq, sk, sv, so, scale, st)
   if (dh == 64) return rope ? SAM3_LAUNCH(64, true) : SAM3_LAUNCH(64, false);
   if (dh == 32) return rope ? SAM3_LAUNCH(32, true) : SAM3_LAUNCH(32, false);
 #undef SAM3_LAUNCH

@@ -24,9 +24,7 @@ def build_sam3_image_model(
     checkpoint (``utils/checkpoint.py``). Returned in eval mode with every
     parameter frozen (this is the serving path)."""
     config = config or ModelConfig()
-    if config.base_quant == "int8_bwd":
-        raise NotImplementedError("int8_bwd is not ported yet")
-    if config.base_quant not in ("none", "int8"):
+    if config.base_quant not in ("none", "int8", "int8_bwd"):
         raise ValueError(f"unknown base_quant: {config.base_quant!r}")
     model = Sam3Image(Spec(model=config, lora=lora, device=device))
     if lora is not None:

@@ -4,6 +4,9 @@ cross-attention with the separable log-scale boxRPB bias, iterative box
 refinement, and in training DAC query doubling (a second, one-to-many copy
 of the queries that skips the self-attention) and the layer dropouts.
 
+With ``dec_remat`` each layer runs under ``checkpoint`` in training (the JAX
+``nn.remat`` per decoder layer).
+
 Presence-logit clamp: the reference calls ``logits.clamp(...)`` without
 assigning it, so no clamp is applied here either.
 """
@@ -19,7 +22,9 @@ import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, inverse_sigmoid
 from ..ops.posenc import gen_sineembed_for_position
-from .layers import MLP, Dropout, Embedding, LayerNorm, LoRALinear, MultiHeadAttention, Spec
+from .layers import (
+    MLP, Dropout, Embedding, LayerNorm, LoRALinear, MultiHeadAttention, Spec, checkpoint,
+)
 
 
 class DecoderOutput(NamedTuple):
@@ -67,6 +72,7 @@ class DecoderLayer(nn.Module):
     def __init__(self, spec: Spec):
         super().__init__()
         cfg = spec.model
+        self.spec = spec
         d, heads, drop = cfg.d_model, cfg.dec_heads, cfg.dec_dropout
         self.self_attn = MultiHeadAttention(d, heads, spec, dropout=drop)
         self.norm2 = LayerNorm(d, spec)
@@ -131,8 +137,7 @@ class TransformerDecoder(nn.Module):
             raise NotImplementedError("box_rpb='none' is not ported yet")
         if not cfg.dec_separable_bias:
             raise NotImplementedError("the dense boxRPB oracle is not ported")
-        if self.training and cfg.dec_remat:
-            raise NotImplementedError("dec_remat is not ported")
+        remat = self.training and torch.is_grad_enabled() and cfg.dec_remat
         dt = self.spec.dtype
         b, d, nq = memory.shape[0], cfg.d_model, cfg.num_queries
         tgt = self.query_embed()[None].expand(b, nq, d).to(dt)
@@ -156,8 +161,9 @@ class TransformerDecoder(nn.Module):
                 # the presence row attends with zero bias
                 dy = torch.cat([torch.zeros_like(dy[:, :1]), dy], dim=1)
                 dx = torch.cat([torch.zeros_like(dx[:, :1]), dx], dim=1)
-            tgt, presence = layer(tgt, query_pos, memory, memory_pos, memory_text,
-                                  text_mask, (dy, dx, feat_hw), presence, apply_dac)
+            args = (tgt, query_pos, memory, memory_pos, memory_text, text_mask,
+                    (dy, dx, feat_hw), presence, apply_dac)
+            tgt, presence = checkpoint(layer, layer, *args) if remat else layer(*args)
             normed = self.norm(tgt)
             delta = self.bbox_embed(normed).float()
             hs.append(normed)

@@ -5,8 +5,13 @@ Each layer runs pre-norm self-attention (position encodings added to q/k),
 cross-attention to the prompt sequence, and a relu FFN, with dropout on each
 branch in training. Over the 5184 image tokens the self-attention is an
 unmasked long self-attention, which ``MultiHeadAttention`` sends to
-``long_attention_packed``. With ``enc_remat`` each fusion-encoder layer runs
-under ``checkpoint`` in training (the JAX ``nn.remat`` per layer).
+``long_attention_packed``.
+
+Remat in training, as the JAX encoder has it: with ``enc_remat`` each layer
+runs under ``checkpoint`` and keeps its self-attention output
+(``"enc_attn_out"``), so the backward replays the layer but not the attention
+kernel; with ``enc_remat_ffn`` (and no ``enc_remat``) only the FFN sub-block
+runs under ``checkpoint``.
 """
 
 from __future__ import annotations
@@ -69,8 +74,17 @@ class EncoderLayer(nn.Module):
         tgt2 = self.cross_attn_image(q, k, memory, key_padding_mask=memory_key_padding_mask)
         tgt = tgt + self.dropout(tgt2)
 
-        tgt2 = self.linear2(self.dropout(F.relu(self.linear1(self.norm3(tgt)))))
+        tgt2 = self.norm3(tgt)
+        cfg = self.spec.model
+        if self.training and torch.is_grad_enabled() and cfg.enc_remat_ffn and not cfg.enc_remat:
+            tgt2 = checkpoint(self, self.ffn, tgt2)
+        else:
+            tgt2 = self.ffn(tgt2)
         return tgt + self.dropout(tgt2)
+
+    def ffn(self, x: torch.Tensor) -> torch.Tensor:
+        """linear1 -> relu -> dropout -> linear2 (the JAX ``_ffn``)."""
+        return self.linear2(self.dropout(F.relu(self.linear1(x))))
 
 
 class TransformerEncoderFusion(nn.Module):
@@ -93,11 +107,12 @@ class TransformerEncoderFusion(nn.Module):
 
     def forward(self, src, src_pos, prompt, prompt_key_padding_mask):
         cfg = self.spec.model
-        if self.training and cfg.enc_remat_ffn and not cfg.enc_remat:
-            raise NotImplementedError("enc_remat_ffn (remat of the FFN alone) is not ported")
         remat = self.training and torch.is_grad_enabled() and cfg.enc_remat
         out = src
         for layer in self.layers:
             args = (out, prompt, src_pos, None, None, prompt_key_padding_mask)
-            out = checkpoint(layer, layer, *args) if remat else layer(*args)
+            if remat:
+                out = checkpoint(layer, layer, *args, keep=("enc_attn_out",))
+            else:
+                out = layer(*args)
         return out

@@ -13,9 +13,10 @@ the fp32 islands of the JAX package (LayerNorm/GroupNorm statistics, softmax).
 
 Training mode (``model.train()``, the JAX modules' ``train=True``) turns on
 the JAX package's dropouts. Their masks come from ``Spec.rng``, one
-``DropoutRNG`` per model, seeded by the trainer; a block run under
-``checkpoint`` draws its masks from a generator re-seeded inside the block
-from a seed drawn outside it, so the backward's replay draws the same masks.
+``DropoutRNG`` per model, seeded by the trainer. A region run under
+``checkpoint`` draws from the live generators in its first pass, as it would
+without remat, and its replay in the backward draws from copies of them as
+they stood when the region began: the same masks, whatever the remat policy.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch.utils.checkpoint
 
 from ..config import LoRAConfig, ModelConfig
 
-from ..ops import gemm_int8
+from ..ops import gemm_int8, remat
 from ..ops.attention import dot_product_attention, merge_heads, split_heads
 from ..ops.long_attention import long_attention_packed
 from ..ops.quant import int8_lora_matmul_prequant, int8_matmul, int8_matmul_prequant
@@ -75,6 +76,29 @@ class DropoutRNG:
             return
         outer = self.host, self.device_generator
         self.host, self.device_generator = self._generators(seed, device)
+        try:
+            yield
+        finally:
+            self.host, self.device_generator = outer
+
+    def state(self):
+        """The generators' states (None when unseeded), for ``restored``."""
+        if self.host is None:
+            return None
+        return self.host.get_state(), self.device_generator.get_state()
+
+    @contextlib.contextmanager
+    def restored(self, state):
+        """Draw seeds and masks from new generators set to ``state``; the
+        live ones are left where they are."""
+        if state is None:
+            yield
+            return
+        outer = self.host, self.device_generator
+        self.host = torch.Generator()
+        self.host.set_state(state[0])
+        self.device_generator = torch.Generator(device=outer[1].device)
+        self.device_generator.set_state(state[1])
         try:
             yield
         finally:
@@ -165,17 +189,22 @@ class DropPath(nn.Module):
         return dropout(x, self.rate, self.spec, shape=(x.shape[0],) + (1,) * (x.ndim - 1))
 
 
-def checkpoint(module: nn.Module, fn, *args):
+def checkpoint(module: nn.Module, fn, *args, keep: Sequence[str] = ()):
     """Run ``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
-    only its inputs are saved and the backward replays it. Dropout inside
-    draws from a generator re-seeded from a seed drawn here, outside the
-    replayed region, so the replay draws the same masks."""
+    its inputs are saved, and the results of the kernel calls tagged with a
+    name in ``keep`` (``ops/remat.py``, the JAX ``save_only_these_names``);
+    the backward replays the rest. The replay draws dropout masks from
+    generators restored to their state at the region's start, so it draws
+    the first pass's masks."""
     rng = module.spec.rng
-    seed = rng.next_seed()
-    device = next(module.parameters()).device
+    state = rng.state()
+    region = remat.Region(keep)
+    passes = [0]
 
     def run(*a):
-        with rng.fork(seed, device):
+        replay = passes[0] > 0
+        passes[0] += 1
+        with region.active(replay), (rng.restored(state) if replay else contextlib.nullcontext()):
             return fn(*a)
 
     return torch.utils.checkpoint.checkpoint(
@@ -267,10 +296,11 @@ class LoRALinear(nn.Module):
                                           self.lora_b, self.scaling)
             return y if bias is None else y + bias
         else:
+            bwd_int8 = self.spec.model.base_quant == "int8_bwd"
             if self.weight.dtype == torch.int8:
-                y = int8_matmul_prequant(x, self.weight, self.weight_scale)
+                y = int8_matmul_prequant(x, self.weight, self.weight_scale, bwd_int8)
             else:
-                y = int8_matmul(x, self.weight)
+                y = int8_matmul(x, self.weight, bwd_int8)
             if bias is not None:
                 y = y + bias
         if self.lora_a is not None:
@@ -425,7 +455,9 @@ class MultiHeadAttention(nn.Module):
             and key_padding_mask is None
             and separable_bias is None
         ):
-            out = long_attention_packed(q, k, v, head_dim ** -0.5, head_dim)
+            # the JAX "enc_attn_out" tag: enc_remat keeps this output
+            with remat.tag("enc_attn_out"):
+                out = long_attention_packed(q, k, v, head_dim ** -0.5, head_dim)
             return self.out_proj(dropout(out, drop, self.spec))
         qh, kh, vh = (split_heads(t, self.num_heads) for t in (q, k, v))
         if separable_bias is not None:

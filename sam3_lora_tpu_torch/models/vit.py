@@ -1,10 +1,23 @@
 """ViTDet backbone (port of ``sam3_lora_tpu/models/vit.py``, flat blocks).
 
-ViT-L/14 at 1008^2 -> 72x72 tokens, 32 blocks of dim 1024 with 16 heads:
-28 blocks attend inside 24x24 windows (``window_attention_rope_packed``), 4
-global blocks over all 5184 tokens (``long_attention_rope_packed``). Both
-read q/k/v as packed (N, L, H*dh) views of the qkv projection output, with no
-relayout, and write the (N, L, H*dh) layout the output projection takes.
+ViT-L/14 at 1008^2 -> 72x72 tokens, 32 blocks of dim 1024 with 16 heads: 28
+blocks attend inside 24x24 windows, 4 global blocks over all 5184 tokens.
+
+Attention routes, with the JAX gates (its "TPU backend" read as "a CUDA
+tensor", or the port's ``window_attention._FORCE_INTERPRET`` in tests):
+* windowed blocks, ``window_qkv.QKV_NATIVE`` on: W-qkv straight off the qkv
+  projection output;
+* windowed blocks otherwise, the packed chain (``window_attention._PACKED``):
+  K1 with RoPE, K1' (``window_attention_packed``) with ``vit_use_rope=False``;
+  both read q/k/v as strided views of the projection output, with no
+  relayout, and write the (N, L, H*dh) layout the output projection takes;
+* global blocks: K2 (``long_attention_rope_packed``), or the K3 entry
+  (``long_attention_packed``) without RoPE;
+* otherwise the grouped chain: (B, H, L, D) views of the projection output
+  into ``dot_product_attention(impl="window")`` (W-p or W-g on the card, the
+  plain expression on the CPU), with RoPE fused into the kernel
+  (``window_attention.FUSE_ROPE``) or applied by ``apply_rope_half`` first.
+Each route's attention output carries the JAX ``"vit_attn_out"`` tag.
 
 RoPE is 2D axial in rotate-half layout: the qkv projection's q/k output
 channels were permuted at load (``LoRALinear.out_perm``) so each head's
@@ -12,10 +25,16 @@ channels are (even pair-members | odd pair-members). Global blocks stretch
 the 24x24 RoPE grid over 72x72 (``scale_pos`` = 24/72).
 
 Training: stochastic depth per block (rates linear in depth up to
-``vit_drop_path_rate``) on both residual branches, and the ``windows_only``
-remat policy of the JAX ViT: the windowed blocks run under ``checkpoint``
-(the backward replays them from their inputs), the global blocks keep their
-activations.
+``vit_drop_path_rate``) on both residual branches, and the JAX ViT's remat
+policies (``vit_remat_policy``): "full" replays every block in the backward;
+"windows_only" replays the windowed blocks and runs the global blocks once;
+"block_mid" splits every block at its mid-point residual x_mid into two
+regions (norm1 -> attention, keeping the attention output, and the MLP
+branch), so x_mid is saved and no attention forward replays;
+"wo_block_mid" does that in the windowed blocks and leaves the global blocks
+unrematted. Where XLA drops forward work that no gradient needs, a torch
+replay runs its region to the last saved tensor: the MLP region replays fc2's
+product (see ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -27,11 +46,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.long_attention import long_attention_rope_packed_qkv
-from ..ops.rope import compute_axial_freqs, rope_half_perm
-from ..ops.window_attention import window_attention_rope_packed_qkv
+from ..ops import remat
+from ..ops import window_attention as wa
+from ..ops import window_qkv as wq
+from ..ops.attention import dot_product_attention, merge_heads
+from ..ops.long_attention import long_attention_packed_qkv, long_attention_rope_packed_qkv
+from ..ops.rope import apply_rope_half, compute_axial_freqs, rope_half_perm
 from ..ops.windows import window_partition, window_unpartition
 from .layers import Conv2d, DropPath, LayerNorm, LoRALinear, Spec, checkpoint, trunc_normal_
+
+REMAT_POLICIES = ("full", "block_mid", "windows_only", "wo_block_mid")
 
 
 def qkv_out_perm(dim: int, heads: int) -> np.ndarray:
@@ -57,36 +81,68 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, spec: Spec, input_size: Tuple[int, int], scale_pos: float, window: bool):
+    def __init__(self, spec: Spec, input_size: Tuple[int, int], scale_pos: float):
         super().__init__()
         cfg = spec.model
-        if not cfg.vit_use_rope:
-            raise NotImplementedError("vit_use_rope=False is not ported yet")
         dim, heads = cfg.vit_dim, cfg.vit_heads
-        self.dim, self.head_dim, self.window = dim, dim // heads, window
-        self.qkv = LoRALinear(dim, 3 * dim, spec, out_perm=qkv_out_perm(dim, heads))
+        self.dim, self.heads, self.head_dim = dim, heads, dim // heads
+        out_perm = qkv_out_perm(dim, heads) if cfg.vit_use_rope else None
+        self.qkv = LoRALinear(dim, 3 * dim, spec, out_perm=out_perm)
         self.proj = LoRALinear(dim, dim, spec)
-        angles = compute_axial_freqs(
-            self.head_dim, input_size[1], input_size[0],
-            theta=cfg.vit_rope_theta, scale_pos=scale_pos,
-        )
-        self.register_buffer("rope_cos", torch.tensor(np.cos(angles), device=spec.device),
-                             persistent=False)
-        self.register_buffer("rope_sin", torch.tensor(np.sin(angles), device=spec.device),
-                             persistent=False)
+        # the JAX choice of attention implementation for this block's grid
+        if cfg.use_flash_attention and input_size[0] * input_size[1] >= cfg.flash_attention_min_seq:
+            self.impl = "pallas"
+        elif cfg.use_flash_attention and input_size[0] == cfg.vit_window_size:
+            self.impl = "window"
+        else:
+            self.impl = "xla"
+        cos = sin = None
+        if cfg.vit_use_rope:
+            angles = compute_axial_freqs(
+                self.head_dim, input_size[1], input_size[0],
+                theta=cfg.vit_rope_theta, scale_pos=scale_pos,
+            )
+            cos, sin = (torch.tensor(f(angles), device=spec.device) for f in (np.cos, np.sin))
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
-        d = self.dim
-        qkv = self.qkv(x.reshape(b, h * w, d))
+        return self.proj(self.attend(x)).reshape(b, h, w, self.dim)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, h, w, dim) -> the attention output (B, h*w, dim) before the
+        output projection, tagged ``"vit_attn_out"`` for the remat policies."""
+        b, l = x.shape[0], x.shape[1] * x.shape[2]
+        qkv = self.qkv(x.reshape(b, l, self.dim))
+        heads, hd, scale = self.heads, self.head_dim, self.head_dim ** -0.5
+        cos, sin = self.rope_cos, self.rope_sin
         # the packed qkv goes in whole, so its gradient comes back as one tensor
-        scale = self.head_dim ** -0.5
-        if self.window:
-            out = window_attention_rope_packed_qkv(qkv, scale, self.rope_cos, self.rope_sin)
-        else:
-            out = long_attention_rope_packed_qkv(qkv, scale, self.head_dim, self.rope_cos,
-                                                 self.rope_sin)
-        return self.proj(out).reshape(b, h, w, d)
+        window_fused = self.impl == "window" and (wa.FUSE_ROPE or cos is None)
+        with remat.tag("vit_attn_out"):
+            if window_fused and wq.qkv_native_ok(heads, hd, qkv):
+                if cos is None:
+                    return wq.window_attention_qkv(qkv, heads, scale)
+                return wq.window_attention_rope_qkv(qkv, heads, scale, cos, sin)
+            if window_fused and wa.packed_native_ok(heads, hd, qkv):
+                if cos is None:
+                    return wa.window_attention_packed_qkv(qkv, scale, hd)
+                return wa.window_attention_rope_packed_qkv(qkv, scale, cos, sin)
+            if self.impl == "pallas":
+                if cos is None:
+                    return long_attention_packed_qkv(qkv, scale, hd)
+                return long_attention_rope_packed_qkv(qkv, scale, hd, cos, sin)
+            # the grouped chain: (B, H, L, hd) views of the projection output
+            q, k, v = qkv.reshape(b, l, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+            rope = (None, None)
+            if cos is not None:
+                if self.impl == "window" and wa.FUSE_ROPE:
+                    rope = (cos, sin)  # rotated inside the window kernel
+                else:
+                    q, k = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+            out = dot_product_attention(q, k, v, scale=scale, impl=self.impl if self.impl == "window"
+                                        else "xla", rope_cos=rope[0], rope_sin=rope[1])
+            return merge_heads(out)
 
 
 class TimmMlp(nn.Module):
@@ -115,21 +171,42 @@ class Block(nn.Module):
             input_size = (feat, feat)
             scale_pos = cfg.vit_window_size / feat if cfg.vit_rope_interp else 1.0
         self.norm1 = LayerNorm(cfg.vit_dim, spec)
-        self.attn = Attention(spec, input_size, scale_pos, window=window_size > 0)
+        self.attn = Attention(spec, input_size, scale_pos)
         self.norm2 = LayerNorm(cfg.vit_dim, spec)
         self.mlp = TimmMlp(cfg.vit_dim, cfg.vit_mlp_hidden, spec)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, split_remat: bool = False) -> torch.Tensor:
+        """With ``split_remat`` (the block_mid policies) the attention branch
+        up to the output projection and the MLP branch each run under
+        ``checkpoint``; the first keeps the attention output, so the replay
+        runs no attention kernel; x_mid, the second region's input, is
+        saved."""
         ws = self.window_size
+        b, h, w, c = x.shape
+        if split_remat:
+            y = checkpoint(self, self._attend, x, keep=("vit_attn_out",))
+        else:
+            y = self._attend(x)
+        if ws > 0:
+            hw = (h, w)
+            pad_hw = (h + (ws - h % ws) % ws, w + (ws - w % ws) % ws)
+            y = window_unpartition(self.attn.proj(y).reshape(-1, ws, ws, c), ws, pad_hw, hw)
+        else:
+            y = self.attn.proj(y).reshape(b, h, w, c)
+        x = x + self.drop_path(y)  # x_mid
+        y = checkpoint(self, self._mlp, x) if split_remat else self._mlp(x)
+        return x + self.drop_path(y)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
+        """norm1, window partition, attention: (B', L, dim) before the output
+        projection."""
         y = self.norm1(x)
-        if ws > 0:
-            hw = (y.shape[1], y.shape[2])
-            y, pad_hw = window_partition(y, ws)
-        y = self.attn(y)
-        if ws > 0:
-            y = window_unpartition(y, ws, pad_hw, hw)
-        x = x + self.drop_path(y)
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        if self.window_size > 0:
+            y, _ = window_partition(y, self.window_size)
+        return self.attn.attend(y)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mlp(self.norm2(x))
 
 
 class ViT(nn.Module):
@@ -179,10 +256,16 @@ class ViT(nn.Module):
             x = x + self._abs_pos().to(x.dtype)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
-        remat = self.training and torch.is_grad_enabled()
-        if remat and cfg.vit_remat_policy != "windows_only":
-            raise NotImplementedError(
-                f"vit_remat_policy={cfg.vit_remat_policy!r} is not ported; use 'windows_only'")
+        policy = cfg.vit_remat_policy
+        remat_on = self.training and torch.is_grad_enabled()
+        if remat_on and policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown vit_remat_policy: {policy}")
         for blk in self.blocks:
-            x = checkpoint(blk, blk, x) if remat and blk.window_size > 0 else blk(x)
+            windowed = blk.window_size > 0
+            if not remat_on or (policy in ("windows_only", "wo_block_mid") and not windowed):
+                x = blk(x)
+            elif policy in ("block_mid", "wo_block_mid"):
+                x = blk(x, split_remat=True)
+            else:  # "full", and the windowed blocks of "windows_only"
+                x = checkpoint(blk, blk, x)
         return x.permute(0, 3, 1, 2)

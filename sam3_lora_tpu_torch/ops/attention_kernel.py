@@ -1,24 +1,30 @@
-"""Build, binding, plain references and autograd of the packed attention kernels.
+"""Build, binding, plain references and autograd of the attention kernels.
 
 ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu`` hold the forward and
-backward CUDA kernels of the three attention entry points
-(``window_attention.py``, ``long_attention.py``). ``_cuda.py`` builds them,
-with the port's other kernels, into one shared library at first use; this
-module declares their C entry points and launches on PyTorch's current
-stream. Nothing here runs at import: the CPU tests import every module on a
-host without ``nvcc``.
+backward CUDA kernels of every attention entry point (``window_attention.py``,
+``window_qkv.py``, ``long_attention.py``). The kernels take each operand as an
+(N, P, L, dh) view with its own strides, so the packed (N, L, P*dh) layout,
+views of a qkv projection output and head-major (B, H, L, D) tensors are all
+read in place. ``_cuda.py`` builds them, with the port's other kernels, into
+one shared library at first use; this module declares their C entry points and
+launches on PyTorch's current stream. Nothing here runs at import: the CPU
+tests import every module on a host without ``nvcc``.
 
-``attention_packed_plain`` and ``attention_packed_bwd_plain`` are the plain
-PyTorch versions of the forward and the backward (explicit fp32 formulas).
-The entry points use them only for CPU tensors; ``chip_smoke.py`` holds the
-kernels against them on the card.
+``attention_plain`` and ``attention_bwd_plain`` are the plain PyTorch versions
+of the forward and the backward (explicit fp32 formulas), on (N, P, L, dh)
+views; the ``*_packed_*`` functions take (N, L, P*dh) operands. The entry
+points use the plain versions only for CPU tensors; ``chip_smoke.py`` holds
+the kernels against them on the card.
 
 Gradients: when an operand requires grad, ``attend`` and ``attend_qkv`` go
 through a ``torch.autograd.Function`` whose forward also writes the fp32 row
 log-sum-exp and whose backward launches the backward kernel (or, on the CPU,
 runs the plain backward). Without grad the forward runs alone, as in serving.
 Each entry counts its forward launches on ``entry.launches`` and its backward
-launches (one per Function backward) on ``entry.bwd_launches``.
+launches (one per Function backward) on ``entry.bwd_launches``. Inside a
+checkpoint region that keeps the caller's tag (``remat.py``), the replay in
+the backward launches no forward: it takes the first pass's output and
+log-sum-exp back.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _cuda
+from . import _cuda, remat
 from .rope import apply_rope_half, apply_rope_half_inv
 
 SUPPORTED_HEAD_DIMS = (32, 64)
@@ -38,12 +44,20 @@ SUPPORTED_HEAD_DIMS = (32, 64)
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = _cuda.library()
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sam3_attention_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [i64] * 8 + [ctypes.c_float, ptr]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.sam3_attention_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [strides, ctypes.c_float, ptr]
     lib.sam3_attention_fwd.restype = i32
-    lib.sam3_attention_bwd.argtypes = [ptr] * 12 + [i32] * 4 + [i64] * 16 + [ctypes.c_float, ptr]
+    lib.sam3_attention_bwd.argtypes = [ptr] * 12 + [i32] * 4 + [strides, ctypes.c_float, ptr]
     lib.sam3_attention_bwd.restype = i32
     return lib
+
+
+def _strides(*views: torch.Tensor):
+    """The (n, p, l) strides of (N, P, L, dh) views, as the C array the
+    kernels take."""
+    flat = [s for t in views for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _check_operand(name: str, t: torch.Tensor, shape) -> None:
@@ -53,93 +67,72 @@ def _check_operand(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    # 16-byte vector loads: unit last-dim stride, row strides and the base
-    # address aligned to 8 bf16 elements
-    if t.stride(2) != 1 or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+    # 16-byte vector loads: unit last-dim stride, the sequence, head and row
+    # strides and the base address aligned to 8 bf16 elements
+    if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
         raise ValueError(
             f"{name} needs a contiguous last dim and 16-byte aligned rows, "
             f"got strides {t.stride()}"
         )
 
 
-def _check_call(q, k, v, head_dim, cos, sin) -> Tuple[int, int, int]:
-    if head_dim not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not in {SUPPORTED_HEAD_DIMS}")
-    if q.dim() != 3 or q.shape[-1] % head_dim:
-        raise ValueError(f"q must be (N, L, P*{head_dim}), got {tuple(q.shape)}")
-    n, l, pd = q.shape
+def _check_call(q, k, v, cos, sin) -> Tuple[int, int, int, int]:
+    """Checks (N, P, L, dh) views q, k, v and the tables; returns N, P, L, dh."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be an (N, P, L, dh) view, got {tuple(q.shape)}")
+    n, p, l, dh = q.shape
+    if dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not in {SUPPORTED_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, (n, l, pd))
+        _check_operand(name, t, q.shape)
     if (cos is None) != (sin is None):
         raise ValueError("cos and sin go together")
     if cos is not None:
         for name, t in (("cos", cos), ("sin", sin)):
             if t.device != q.device or t.dtype != torch.float32:
                 raise ValueError(f"{name} must be float32 on {q.device}")
-            if tuple(t.shape) != (l, head_dim // 2) or not t.is_contiguous():
+            if tuple(t.shape) != (l, dh // 2) or not t.is_contiguous():
                 raise ValueError(
-                    f"{name} must be contiguous ({l}, {head_dim // 2}), "
-                    f"got {tuple(t.shape)}"
+                    f"{name} must be contiguous ({l}, {dh // 2}), got {tuple(t.shape)}"
                 )
-    if n * (pd // head_dim) > 65535:
-        raise ValueError(f"N*P = {n * (pd // head_dim)} exceeds the grid limit")
-    return n, l, pd // head_dim
+    if n * p > 65535:
+        raise ValueError(f"N*P = {n * p} exceeds the grid limit")
+    return n, p, l, dh
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def attention_packed_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: float,
-    head_dim: int,
-    cos: Optional[torch.Tensor] = None,
-    sin: Optional[torch.Tensor] = None,
-    with_lse: bool = False,
-):
-    """Launch the forward kernel on (N, L, P*head_dim) bf16 CUDA operands;
-    returns a new contiguous (N, L, P*head_dim) bf16 output, and with
-    ``with_lse`` also its (N, P, L) fp32 row log-sum-exp. Raises on anything
-    the kernel does not take."""
-    n, l, p = _check_call(q, k, v, head_dim, cos, sin)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+def attention_cuda(q, k, v, scale: float, cos=None, sin=None, o=None, with_lse: bool = False):
+    """Launch the forward kernel on (N, P, L, dh) bf16 CUDA views of any
+    strides with a contiguous last dim. Writes ``o`` (an (N, P, L, dh) view;
+    a new contiguous tensor by default) and returns it, with ``with_lse``
+    also its (N, P, L) fp32 row log-sum-exp. Raises on anything the kernel
+    does not take."""
+    n, p, l, dh = _check_call(q, k, v, cos, sin)
+    if o is None:
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _check_operand("o", o, q.shape)
     lse = torch.empty((n, p, l), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().sam3_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse),
-        _ptr(cos), _ptr(sin), n, l, p, head_dim,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), o.stride(0), o.stride(1),
-        float(scale), stream,
+        _ptr(cos), _ptr(sin), n, l, p, dh, _strides(q, k, v, o), float(scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"sam3_attention_fwd launch failed: cudaError {err}")
     return (o, lse) if with_lse else o
 
 
-def attention_packed_bwd_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    o: torch.Tensor,
-    lse: torch.Tensor,
-    do: torch.Tensor,
-    scale: float,
-    head_dim: int,
-    cos: Optional[torch.Tensor] = None,
-    sin: Optional[torch.Tensor] = None,
-    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels: (dq, dk, dv) of the forward's output o
-    (with its log-sum-exp ``lse``) for the upstream gradient ``do``, with
-    respect to the unrotated q and k. ``out`` may give the three outputs as
-    (N, L, P*head_dim) bf16 views with row strides (the three column blocks
-    of one packed-qkv gradient); otherwise they are allocated."""
-    n, l, p = _check_call(q, k, v, head_dim, cos, sin)
-    if do.stride(-1) != 1 or do.stride(0) % 8 or do.stride(1) % 8 or do.data_ptr() % 16:
+def attention_bwd_cuda(q, k, v, o, lse, do, scale: float, cos=None, sin=None, out=None):
+    """Launch the backward kernels on (N, P, L, dh) views: (dq, dk, dv) of the
+    forward's output ``o`` (with its log-sum-exp ``lse``) for the upstream
+    gradient ``do``, with respect to the unrotated q and k. ``out`` may give
+    the three outputs as views (the column blocks of one packed-qkv
+    gradient); otherwise they are new contiguous tensors."""
+    n, p, l, _ = _check_call(q, k, v, cos, sin)
+    if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
         do = do.contiguous()
     _check_operand("o", o, q.shape)
     _check_operand("do", do, q.shape)
@@ -155,15 +148,37 @@ def attention_packed_bwd_cuda(
     err = _library().sam3_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(cos), _ptr(sin), n, l, p, head_dim,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        o.stride(0), o.stride(1), do.stride(0), do.stride(1),
-        dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
+        _ptr(cos), _ptr(sin), n, l, p, q.shape[3], _strides(q, k, v, o, do, dq, dk, dv),
         float(scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"sam3_attention_bwd launch failed: cudaError {err}")
     return dq, dk, dv
+
+
+def attention_packed_cuda(q, k, v, scale: float, head_dim: int, cos=None, sin=None,
+                          with_lse: bool = False):
+    """``attention_cuda`` on (N, L, P*head_dim) operands (rows may be
+    strided); returns a new contiguous (N, L, P*head_dim) output, and with
+    ``with_lse`` also its (N, P, L) fp32 row log-sum-exp."""
+    if q.dim() != 3 or q.shape[-1] % head_dim:
+        raise ValueError(f"q must be (N, L, P*{head_dim}), got {tuple(q.shape)}")
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = attention_cuda(*(_heads(t, head_dim) for t in (q, k, v)), scale, cos, sin,
+                         o=_heads(o, head_dim), with_lse=with_lse)
+    return (o, out[1]) if with_lse else o
+
+
+def attention_packed_bwd_cuda(q, k, v, o, lse, do, scale: float, head_dim: int, cos=None,
+                              sin=None, out=None):
+    """``attention_bwd_cuda`` on (N, L, P*head_dim) operands; ``out`` may
+    give the outputs as (N, L, P*head_dim) views with row strides, otherwise
+    they are new contiguous tensors of that shape."""
+    if out is None:
+        out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    attention_bwd_cuda(*(_heads(t, head_dim) for t in (q, k, v, o)), lse, _heads(do, head_dim),
+                       scale, cos, sin, out=tuple(_heads(t, head_dim) for t in out))
+    return out
 
 
 def _heads(t: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -176,50 +191,35 @@ def _merge(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(n, l, p * dh)
 
 
-def attention_packed_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: float,
-    head_dim: int,
-    cos: Optional[torch.Tensor] = None,
-    sin: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of the forward kernel: heads split out of the
-    packed (N, L, P*head_dim) layout, optional rotate-half RoPE, fp32 scores,
-    fp32 softmax with the max shift, fp32 P@V, cast back to q's dtype."""
-    qh, kh, vh = (_heads(t, head_dim) for t in (q, k, v))
+def _as_heads(t: torch.Tensor, head_dim: Optional[int]) -> torch.Tensor:
+    """Packed (N, L, P*head_dim) -> its (N, P, L, dh) view; ``head_dim``
+    None means ``t`` already is one."""
+    return t if head_dim is None else _heads(t, head_dim)
+
+
+def attention_plain(q, k, v, scale: float, cos=None, sin=None) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel on (N, P, L, dh) views:
+    optional rotate-half RoPE, fp32 scores, fp32 softmax with the max shift,
+    fp32 P@V, cast back to q's dtype."""
     if cos is not None:
-        qh = apply_rope_half(qh, cos, sin)
-        kh = apply_rope_half(kh, cos, sin)
-    s = torch.einsum("npqd,npkd->npqk", qh.float(), kh.float()) * float(scale)
+        q = apply_rope_half(q, cos, sin)
+        k = apply_rope_half(k, cos, sin)
+    s = torch.einsum("npqd,npkd->npqk", q.float(), k.float()) * float(scale)
     probs = torch.softmax(s, dim=-1)
-    out = torch.einsum("npqk,npkd->npqd", probs, vh.float())
-    return _merge(out).to(q.dtype)
+    return torch.einsum("npqk,npkd->npqd", probs, v.float()).to(q.dtype)
 
 
-def attention_packed_bwd_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    o: torch.Tensor,
-    do: torch.Tensor,
-    scale: float,
-    head_dim: int,
-    cos: Optional[torch.Tensor] = None,
-    sin: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward kernel, in explicit fp32
-    formulas: P recomputed with the max-shift softmax, dV = P^T dO,
-    dS = P o (dO V^T - rowsum(dO o O)), dQ = dS K * scale, dK = dS^T Q *
-    scale, then the inverse RoPE on dQ and dK. Returns (dq, dk, dv) in q's
-    dtype, with respect to the unrotated q and k."""
-    qh, kh, vh = (_heads(t, head_dim) for t in (q, k, v))
+def attention_bwd_plain(q, k, v, o, do, scale: float, cos=None, sin=None):
+    """Plain PyTorch version of the backward kernel on (N, P, L, dh) views,
+    in explicit fp32 formulas: P recomputed with the max-shift softmax,
+    dV = P^T dO, dS = P o (dO V^T - rowsum(dO o O)), dQ = dS K * scale,
+    dK = dS^T Q * scale, then the inverse RoPE on dQ and dK. Returns
+    (dq, dk, dv) in q's dtype, with respect to the unrotated q and k."""
+    dtype = q.dtype
     if cos is not None:
-        qh = apply_rope_half(qh, cos, sin)
-        kh = apply_rope_half(kh, cos, sin)
-    qf, kf, vf = qh.float(), kh.float(), vh.float()
-    dof, of = _heads(do, head_dim).float(), _heads(o, head_dim).float()
+        q = apply_rope_half(q, cos, sin)
+        k = apply_rope_half(k, cos, sin)
+    qf, kf, vf, dof, of = (t.float() for t in (q, k, v, do, o))
     s = torch.einsum("npqd,npkd->npqk", qf, kf) * float(scale)
     s = s - s.amax(dim=-1, keepdim=True)
     p = torch.exp(s)
@@ -233,7 +233,18 @@ def attention_packed_bwd_plain(
     if cos is not None:
         dq = apply_rope_half_inv(dq, cos, sin)
         dk = apply_rope_half_inv(dk, cos, sin)
-    return tuple(_merge(t).to(q.dtype) for t in (dq, dk, dv))
+    return tuple(t.to(dtype) for t in (dq, dk, dv))
+
+
+def attention_packed_plain(q, k, v, scale: float, head_dim: int, cos=None, sin=None):
+    """``attention_plain`` on (N, L, P*head_dim) operands."""
+    return _merge(attention_plain(*(_heads(t, head_dim) for t in (q, k, v)), scale, cos, sin))
+
+
+def attention_packed_bwd_plain(q, k, v, o, do, scale: float, head_dim: int, cos=None, sin=None):
+    """``attention_bwd_plain`` on (N, L, P*head_dim) operands."""
+    grads = attention_bwd_plain(*(_heads(t, head_dim) for t in (q, k, v, o, do)), scale, cos, sin)
+    return tuple(_merge(g) for g in grads)
 
 
 def _device_check(entry, q: torch.Tensor) -> None:
@@ -242,29 +253,48 @@ def _device_check(entry, q: torch.Tensor) -> None:
 
 
 def _forward(entry, q, k, v, scale, head_dim, cos, sin, with_lse: bool):
-    """The forward on the operands' device: the plain version for CPU tensors,
-    the kernel (counted on ``entry.launches``) for CUDA tensors."""
+    """The forward on the operands' device, in their layout (packed, or
+    (N, P, L, dh) when ``head_dim`` is None): the plain version for CPU
+    tensors, the kernel (counted on ``entry.launches``) for CUDA tensors. In
+    a checkpoint region that keeps this call's tag, the backward's replay
+    takes the first pass's result back instead (``remat.kept``)."""
     _device_check(entry, q)
-    if q.device.type == "cpu":
-        out = attention_packed_plain(q, k, v, scale, head_dim, cos, sin)
-        return (out, None) if with_lse else out
-    out = attention_packed_cuda(q, k, v, scale, head_dim, cos, sin, with_lse=with_lse)
-    entry.launches += 1
-    return out
+
+    def compute():
+        views = [_as_heads(t, head_dim) for t in (q, k, v)]
+        if q.device.type == "cpu":
+            o = attention_plain(*views, scale, cos, sin)
+            o, lse = (o if head_dim is None else _merge(o)), None
+        else:
+            o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            out = attention_cuda(*views, scale, cos, sin, o=_as_heads(o, head_dim),
+                                 with_lse=with_lse)
+            lse = out[1] if with_lse else None
+            entry.launches += 1
+        return (o, lse) if with_lse else o
+
+    return remat.kept(compute)
 
 
 def _backward(entry, q, k, v, o, lse, do, scale, head_dim, cos, sin, out=None):
-    """The backward on the operands' device, counted on ``entry.bwd_launches``
-    for CUDA tensors."""
+    """The backward on the operands' device and in their layout, counted on
+    ``entry.bwd_launches`` for CUDA tensors. ``out`` may give the three
+    gradients' buffers (the column blocks of one packed-qkv gradient)."""
+    views = [_as_heads(t, head_dim) for t in (q, k, v, o, do)]
     if q.device.type == "cpu":
-        return attention_packed_bwd_plain(q, k, v, o, do, scale, head_dim, cos, sin)
-    grads = attention_packed_bwd_cuda(q, k, v, o, lse, do, scale, head_dim, cos, sin, out)
+        grads = attention_bwd_plain(*views, scale, cos, sin)
+        return grads if head_dim is None else tuple(_merge(g) for g in grads)
+    if out is None:
+        out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    attention_bwd_cuda(*views[:4], lse, views[4], scale, cos, sin,
+                       out=tuple(_as_heads(t, head_dim) for t in out))
     entry.bwd_launches += 1
-    return grads
+    return out
 
 
-class _PackedAttention(torch.autograd.Function):
-    """Attention over separate (N, L, P*dh) q, k, v with the kernel backward."""
+class _Attention(torch.autograd.Function):
+    """Attention over separate q, k, v (packed (N, L, P*dh), or (N, P, L, dh)
+    when ``head_dim`` is None) with the kernel backward."""
 
     @staticmethod
     def forward(ctx, entry, scale, head_dim, q, k, v, cos, sin):
@@ -314,10 +344,11 @@ def attend(entry, q, k, v, scale, head_dim, cos=None, sin=None):
     """Route an entry point's call by the device of its operands: the plain
     version for CPU tensors, the kernel for CUDA tensors, an error for
     anything else; through the autograd Function when an operand needs a
-    gradient."""
+    gradient. Operands are packed (N, L, P*head_dim), or (N, P, L, dh)
+    views when ``head_dim`` is None; the output has the same layout."""
     if _needs_grad(q, k, v):
         _device_check(entry, q)
-        return _PackedAttention.apply(entry, scale, head_dim, q, k, v, cos, sin)
+        return _Attention.apply(entry, scale, head_dim, q, k, v, cos, sin)
     return _forward(entry, q, k, v, scale, head_dim, cos, sin, with_lse=False)
 
 

@@ -42,6 +42,13 @@ def long_attention_packed(
     return attend(long_attention_packed, q, k, v, scale, head_dim)
 
 
+def long_attention_packed_qkv(qkv: torch.Tensor, scale: float, head_dim: int) -> torch.Tensor:
+    """The same over a whole (N, L, 3*P*head_dim) qkv projection output (the
+    ViT's global blocks with ``vit_use_rope=False``); counted on
+    ``long_attention_packed``."""
+    return attend_qkv(long_attention_packed, qkv, scale, head_dim)
+
+
 long_attention_rope_packed.launches = 0
 long_attention_rope_packed.bwd_launches = 0
 long_attention_packed.launches = 0

@@ -29,14 +29,19 @@ here in fp32 on the CPU; on the card they are cuBLAS products of the
 compute-dtype operands, which accumulate in fp32 and round the result to the
 compute dtype once more.
 
-``base_quant="int8_bwd"`` (dx also int8) is not ported: ``models/builder.py``
-raises on it.
+With ``base_quant="int8_bwd"`` (``bwd_int8``) dx is an int8 product too, as
+the JAX ``_int8_bwd(True, ...)`` computes it in XLA: the per-channel scales
+fold into dy (fp32), its rows are quantized, the contraction with W_q over N
+runs in int32 (``torch._int_mm`` on the card, an exact sum on the CPU) and is
+scaled by the row scales. This perturbs the adapter gradients by dy's
+quantization; the fused adapter Function keeps the bf16 dx, as in JAX.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from . import gemm_int8
 from .gemm_int8 import dequantize, quant_rows
@@ -62,11 +67,31 @@ def _apply(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, wq.shape[0])
 
 
-def _dx(dy: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+def _int8_dot_nn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 a (M, N) . int8 b (N, K) -> the exact int32 sums, as fp32."""
+    if a.device.type == "cpu":
+        return gemm_int8.int8_dot(a, b.t())
+    m = a.shape[0]
+    if m <= 16:  # torch._int_mm takes M > 16; zero rows add nothing
+        a = F.pad(a, (0, 0, 0, 17 - m))
+    # cuBLAS's int8 product wants both operands contiguous along N
+    return torch._int_mm(a, b.t().contiguous().t())[:m].float()
+
+
+def dx_int8(dy: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """The ``int8_bwd`` dx: dy (M, N) -> (M, K) in dy's dtype, the JAX
+    expression op by op (quantization by division, as ``quant_rows``)."""
+    dyq, dys = quant_rows(dy.float() * ws)
+    return (_int8_dot_nn(dyq, wq) * dys).to(dy.dtype)
+
+
+def _dx(dy: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, bwd_int8: bool = False) -> torch.Tensor:
     """dy (..., N) . dequant(wq, ws) -> (..., K) in dy's dtype."""
     n, k = wq.shape
     dy2 = dy.reshape(-1, n)
-    if gemm_int8.GEMM_BWD_KERNEL and gemm_int8.supported_nt(dy2.shape[0], k, n):
+    if bwd_int8:
+        dx = dx_int8(dy2, wq, ws)
+    elif gemm_int8.GEMM_BWD_KERNEL and gemm_int8.supported_nt(dy2.shape[0], k, n):
         dx = gemm_int8.bf16_gemm_wres_nt(dy2, wq, ws)
     else:
         dx = _mm(dy2, dequantize(wq, ws, dy.dtype)).to(dy.dtype)
@@ -77,29 +102,31 @@ class _Int8Matmul(torch.autograd.Function):
     """y = x . W^T with W quantized per call (``int8_matmul``)."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, bwd_int8):
         wq, ws = quantize_weight(w.detach())
         ctx.save_for_backward(wq, ws)
+        ctx.bwd_int8 = bwd_int8
         return _apply(x, wq, ws)
 
     @staticmethod
     def backward(ctx, dy):
         wq, ws = ctx.saved_tensors
-        return _dx(dy, wq, ws), None
+        return _dx(dy, wq, ws, ctx.bwd_int8), None, None
 
 
 class _Int8MatmulPrequant(torch.autograd.Function):
     """y = x . dequant(wq, ws)^T with the weight quantized offline."""
 
     @staticmethod
-    def forward(ctx, x, wq, ws):
+    def forward(ctx, x, wq, ws, bwd_int8):
         ctx.save_for_backward(wq, ws)
+        ctx.bwd_int8 = bwd_int8
         return _apply(x, wq, ws)
 
     @staticmethod
     def backward(ctx, dy):
         wq, ws = ctx.saved_tensors
-        return _dx(dy, wq, ws), None, None
+        return _dx(dy, wq, ws, ctx.bwd_int8), None, None, None
 
 
 class _Int8LoRAMatmulPrequant(torch.autograd.Function):
@@ -135,16 +162,18 @@ class _Int8LoRAMatmulPrequant(torch.autograd.Function):
         return dx, None, None, da, db, None
 
 
-def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w: torch.Tensor, bwd_int8: bool = False) -> torch.Tensor:
     """x (..., K) . w (N, K)^T with dynamic W8A8 quantization (the weight is
-    quantized on every call); returns (..., N) in x's dtype."""
-    return _Int8Matmul.apply(x, w)
+    quantized on every call); returns (..., N) in x's dtype. ``bwd_int8``:
+    dx is an int8 product too (``base_quant="int8_bwd"``)."""
+    return _Int8Matmul.apply(x, w, bwd_int8)
 
 
-def int8_matmul_prequant(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+def int8_matmul_prequant(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                         bwd_int8: bool = False) -> torch.Tensor:
     """x (..., K) . dequant(wq (N, K) int8, ws (N,) fp32)^T; numerically
     identical to ``int8_matmul`` of the weight ``quantize_weight`` took."""
-    return _Int8MatmulPrequant.apply(x, wq, ws)
+    return _Int8MatmulPrequant.apply(x, wq, ws, bwd_int8)
 
 
 def int8_lora_matmul_prequant(x, wq, ws, la, lb, scale: float) -> torch.Tensor:

@@ -19,6 +19,10 @@ change:
 * everything else (norms, embeddings, ``pos_embed``, the transposed-conv
   ``weight`` already in torch layout) as it is.
 
+bf16 leaves (``param_dtype="bfloat16"`` storage) arrive as ``ml_dtypes``
+bfloat16 arrays in memory, or as 2-byte void arrays from an ``.npz`` (numpy
+keeps the bits but not the type); both become bf16 tensors, bit for bit.
+
 ``load_jax_params`` then folds the rotate-half column permutation of the ViT
 qkv projection (which the JAX module applies at every call) into the q/k
 output channels of ``weight``, ``bias``, ``lora_b`` and ``weight_scale``,
@@ -113,6 +117,13 @@ def stack_scanned(flat: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
     return out
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """JAX flat params (``lora_a``/``lora_b`` included) -> tensors keyed by
     the port's ``state_dict`` names, in torch layout. The qkv permutation is
@@ -129,7 +140,7 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             arr = arr.reshape(-1)
         elif leaf in ("in_proj_weight", "lora_a", "lora_b"):
             arr = arr.T
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        out[name] = _tensor(arr)
     return out
 
 

@@ -1,15 +1,22 @@
 """Write the JAX package's reference outputs of the tiny config for the
 port's whole-model tests (``tests/test_torch_reference.py``):
 
-    JAX_PLATFORMS=cpu python tests/make_torch_reference.py [out_dir]
+    JAX_PLATFORMS=cpu python tests/make_torch_reference.py [out_dir] [case ...]
 
 writes ``torch_ref_<case>.npz`` into ``out_dir`` (default ``tests/data``) for
-four cases: the eval forward and the training step, each with the base in
-fp32 (``base_quant="none"``) and in the int8 tier (``base_quant="int8"``,
+six cases: the eval forward and the training step, each with the base in
+fp32 (``base_quant="none"``), in the int8 tier (``base_quant="int8"``,
 ``base_quant_min_dim=16``, the frozen base quantized by the JAX package's
-``prequantize_tree`` / ``prequantize_base``). Every case is fp32, with LoRA
-rank 4 on qkv/fc1/fc2/linear1/linear2, weights drawn from numpy seed 0
-(``torch_port_helpers.fill_params``) and a numpy-seeded batch.
+``prequantize_tree`` / ``prequantize_base``), and at ``bench.py``'s settings
+(``_bench``: the int8 tier over a base stored in bf16, ``wo_block_mid`` ViT
+remat, ``enc_remat_ffn``, flat ViT blocks, the bench adapter targets at rank
+4 with the geometry encoder and mask decoder on; ``d_model`` 16 and the int8
+gate at 32, so that, as in the full config, the ViT and the text encoder are
+quantized and the detection heads are not; their forward runs op by op, see
+``reference``). Compute is fp32 in every
+case, with LoRA rank 4 (on qkv/fc1/fc2/linear1/linear2 but for the bench
+cases), weights drawn from numpy seed 0 (``torch_port_helpers.fill_params``,
+rounded to bf16 where the base is stored so) and a numpy-seeded batch.
 
 Each file holds what the port needs to rebuild the inputs without JAX and
 the outputs to compare: ``params`` (a JSON list of [name, shape] in draw
@@ -55,17 +62,31 @@ from sam3_lora_tpu.train.losses import LossConfig, compute_losses  # noqa: E402
 from torch_port_helpers import fill_params, jax_apply, param_specs  # noqa: E402
 
 LORA = LoRAConfig(rank=4, alpha=8.0, target_modules=("qkv", "fc1", "fc2", "linear1", "linear2"))
+LORA_BENCH = LoRAConfig(rank=4, alpha=8.0, target_modules=(
+    "q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2", "linear1", "linear2"),
+    apply_to_geometry_encoder=True, apply_to_mask_decoder=True)
 QUANT = dict(base_quant="int8", base_quant_min_dim=16)
+# as in the full config, the int8 gate takes the ViT and the text encoder
+# (32 wide here) and not the 16-wide detection heads
+BENCH = dict(base_quant="int8", base_quant_min_dim=32, d_model=16, param_dtype="bfloat16",
+             vit_remat_policy="wo_block_mid", enc_remat=False, enc_remat_ffn=True,
+             dec_remat=False, vit_scan_blocks=False)
 CASES = {  # name -> (training step, config overrides)
     "eval": (False, {}),
     "eval_int8": (False, QUANT),
     "train": (True, {}),
     "train_int8": (True, QUANT),
+    "eval_bench": (False, BENCH),
+    "train_bench": (True, BENCH),
 }
 
 
 def case_config(name: str):
     return tiny_model_config(**CASES[name][1])
+
+
+def case_lora(name: str) -> LoRAConfig:
+    return LORA_BENCH if name.endswith("bench") else LORA
 
 
 def make_batch(cfg, with_targets: bool) -> dict:
@@ -115,12 +136,17 @@ def reference(name: str) -> dict:
     """The arrays of one case's file."""
     train, _ = CASES[name]
     cfg = case_config(name)
-    jm = build_sam3_image_model(cfg, lora=LORA)
+    lora = case_lora(name)
+    jm = build_sam3_image_model(cfg, lora=lora)
     arrays = make_batch(cfg, with_targets=train)
     jb = jax_batch(arrays)
-    specs = param_specs(jm, jax_batch(make_batch(cfg, with_targets=False)), train=False)
+    example = jax_batch(make_batch(cfg, with_targets=False))
+    specs = param_specs(jm, example, train=False)
     flat = fill_params(specs)
-    params = traverse_util.unflatten_dict({p: jnp.asarray(flat[".".join(p)]) for p, _ in specs})
+    dtypes = traverse_util.flatten_dict(jax.eval_shape(
+        lambda: jm.init({"params": jax.random.PRNGKey(0)}, example, train=False))["params"])
+    params = traverse_util.unflatten_dict(
+        {p: jnp.asarray(flat[".".join(p)]).astype(dtypes[p].dtype) for p, _ in specs})
     trainable, frozen = jax_trainer.split_trainable(params)
     out = {"params": np.asarray(json.dumps([[".".join(p), list(s)] for p, s in specs]))}
     if cfg.base_quant != "none":
@@ -131,15 +157,21 @@ def reference(name: str) -> dict:
         frozen = quantized
     params = jax_trainer.merge_trainable(trainable, frozen)
     out.update({f"in/{k}": v for k, v in arrays.items()})
+    # the bench cases' forward runs op by op, as the port quantizes: under
+    # jax.jit XLA multiplies by 1/127 where the JAX code divides (PERF.md,
+    # PR 3), and on their inputs that moves some activations by an int8 step
+    op_by_op = jax.disable_jit(name.endswith("bench"))
     if not train:
-        ref = jax_apply(jm, params, jb, train=False)
+        with op_by_op:
+            ref = jax_apply(jm, params, jb, train=False)
     else:
         orig = jax_scoring.MLP
         jax_scoring.MLP = _mlp_without_dropout
         try:
-            jm = build_sam3_image_model(cfg, lora=LORA)
+            jm = build_sam3_image_model(cfg, lora=lora)
             rng = jax.random.PRNGKey(1)
-            ref = jax_apply(jm, params, jb, train=True, rngs={"dropout": rng})
+            with op_by_op:
+                ref = jax_apply(jm, params, jb, train=True, rngs={"dropout": rng})
 
             def loss_fn(trainable, frozen):
                 p = jax_trainer.merge_trainable(trainable, frozen)
@@ -168,5 +200,6 @@ def write(out_dir: str, names=tuple(CASES)) -> list:
 
 
 if __name__ == "__main__":
-    for p in write(sys.argv[1] if len(sys.argv) > 1 else os.path.join(HERE, "data")):
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(HERE, "data")
+    for p in write(out, tuple(sys.argv[2:]) or tuple(CASES)):
         print(p, os.path.getsize(p))

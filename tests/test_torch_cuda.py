@@ -18,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from sam3_lora_tpu_torch.ops import gemm_int8, quant
+from sam3_lora_tpu_torch.ops import gemm_int8, quant, window_attention, window_qkv
+from sam3_lora_tpu_torch.ops.attention import dot_product_attention
 from sam3_lora_tpu_torch.ops.attention_kernel import (
     attend_qkv,
+    attention_bwd_plain,
     attention_packed_bwd_cuda,
     attention_packed_bwd_plain,
     attention_packed_cuda,
+    attention_plain,
 )
 from sam3_lora_tpu_torch.ops.long_attention import (
     long_attention_packed,
@@ -165,6 +168,79 @@ def test_packed_qkv_gradient_is_one_tensor(gen):
         _assert_matches(g, r)
 
 
+WINDOW_ROUTES = ("packed", "grouped", "rope_grouped", "pair_packed", "rope_pair_packed",
+                 "qkv", "rope_qkv")
+WINDOW_ENTRIES = window_attention.ENTRIES + (window_qkv.window_attention_qkv,
+                                             window_qkv.window_attention_rope_qkv)
+
+
+def _window_route(name, qkv, heads, cos, sin):
+    """(entry, output as (N, H, L, dh)) of one window route on the
+    (N, L, 3*H*dh) tensor ``qkv``: K1' on (N*H/2, L, 2*dh) pairs copied out
+    of it, W-g and W-p on (N, H, L, dh) views of it, W-qkv on the tensor."""
+    n, l, td = qkv.shape
+    dh = td // (3 * heads)
+    scale = dh ** -0.5
+    rope = (cos, sin) if name.startswith("rope") else ()
+    if name in ("qkv", "rope_qkv"):
+        entry = getattr(window_qkv, f"window_attention_{name}")
+        return entry, entry(qkv, heads, scale, *rope).reshape(n, l, heads, dh).transpose(1, 2)
+    if name == "packed":
+        q, k, v = (t.reshape(n, l, heads // 2, 2 * dh).transpose(1, 2).reshape(-1, l, 2 * dh)
+                   .contiguous() for t in qkv.chunk(3, dim=-1))
+        out = window_attention.window_attention_packed(q, k, v, scale)
+        out = out.reshape(n, heads // 2, l, 2, dh).transpose(2, 3).reshape(n, heads, l, dh)
+        return window_attention.window_attention_packed, out
+    views = qkv.reshape(n, l, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    entry = getattr(window_attention, f"window_attention_{name}")
+    return entry, entry(*views, scale, *rope)
+
+
+@pytest.mark.parametrize("l", [37, 576])
+@pytest.mark.parametrize("name", WINDOW_ROUTES)
+def test_window_routes_match_plain_forward_and_backward(gen, name, l):
+    """K1', W-g, W-p and W-qkv (with and without RoPE): forward and, through
+    autograd, the backward kernels against the plain versions, each counted
+    on its own entry, once."""
+    heads, dh = 4, 64
+    qkv = torch.randn(3, l, 3 * heads * dh, generator=gen, device="cuda").to(torch.bfloat16)
+    qkv.requires_grad_(True)
+    cos, sin = _tables(l, dh)
+    rope = (cos, sin) if name.startswith("rope") else (None, None)
+    for e in WINDOW_ENTRIES:
+        e.launches = e.bwd_launches = 0
+    entry, out = _window_route(name, qkv, heads, cos, sin)
+    assert out.grad_fn is not None
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = {e.__name__: (e.launches, e.bwd_launches) for e in WINDOW_ENTRIES}
+    assert counts.pop(entry.__name__) == (1, 1)
+    assert set(counts.values()) == {(0, 0)}
+    views = qkv.detach().reshape(3, l, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    _assert_matches(out, attention_plain(*views, dh ** -0.5, *rope))
+    refs = attention_bwd_plain(*views, out.detach(), do, dh ** -0.5, *rope)
+    grads = qkv.grad.reshape(3, l, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    for g, r in zip(grads, refs):
+        _assert_matches(g, r)
+
+
+def test_dot_product_attention_window_impl_routes_to_the_kernels(gen, monkeypatch):
+    """``impl="window"`` on CUDA tensors takes W-p, or W-g with ``_PACKED``
+    off; the grid of W-g at batch 8 (1152 heads) launches."""
+    q, k, v = (torch.randn(72, 16, 576, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    cos, sin = _tables(576, 64)
+    for packed, entry in ((True, window_attention.window_attention_rope_pair_packed),
+                          (False, window_attention.window_attention_rope_grouped)):
+        monkeypatch.setattr(window_attention, "_PACKED", packed)
+        before = entry.launches
+        out = dot_product_attention(q, k, v, impl="window", rope_cos=cos, rope_sin=sin)
+        torch.cuda.synchronize()
+        assert entry.launches == before + 1
+        _assert_matches(out, attention_plain(q, k, v, 64 ** -0.5, cos, sin))
+
+
 GEMM_RTOL = 8e-3
 VIT_KN = [(1024, 3072), (1024, 1024), (1024, 4736), (4736, 1024)]  # qkv, proj, fc1, fc2
 TEXT_KN = [(1024, 4096), (4096, 1024)]  # c_fc, c_proj (out_proj is 1024 x 1024)
@@ -259,6 +335,17 @@ def test_fused_function_grads_on_the_card(gen):
     torch.cuda.synchronize()
     for t in (x.grad, la.grad, lb.grad):
         assert torch.isfinite(t.float()).all() and t.float().abs().max() > 0
+
+
+@pytest.mark.parametrize("m", [5, 96, 1000])
+def test_int8_bwd_dx_on_the_card_equals_plain(gen, m):
+    """The ``int8_bwd`` dx through ``torch._int_mm`` equals the CPU's exact
+    sum bit for bit (M <= 16 padded)."""
+    _, wq, ws, _, _ = _int8_operands(gen, 1, 1024, 4736)
+    dy = torch.randn(m, 4736, generator=gen, device="cuda").to(torch.bfloat16)
+    out = quant.dx_int8(dy, wq, ws)
+    assert out.dtype == torch.bfloat16 and out.shape == (m, 1024)
+    assert torch.equal(out.cpu(), quant.dx_int8(dy.cpu(), wq.cpu(), ws.cpu()))
 
 
 def test_gemm_wrappers_reject_what_the_kernels_do_not_take(gen):

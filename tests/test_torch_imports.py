@@ -15,6 +15,8 @@ CODE = (
     "import sam3_lora_tpu_torch.train.trainer, sam3_lora_tpu_torch.train.prefetch\n"
     "import sam3_lora_tpu_torch.train.matcher, sam3_lora_tpu_torch.train.losses\n"
     "import sam3_lora_tpu_torch.ops.quant, sam3_lora_tpu_torch.ops.gemm_int8\n"
+    "import sam3_lora_tpu_torch.ops.window_attention, sam3_lora_tpu_torch.ops.window_qkv\n"
+    "import sam3_lora_tpu_torch.ops.remat, sam3_lora_tpu_torch.ops.attention\n"
     "import sam3_lora_tpu_torch.ops.rle as r\n"
     "r.segmentation_to_mask({'size': [2, 2], 'counts': [1, 2, 1]}, 2, 2)\n"
     "import sam3_lora_tpu_torch.cli.train, sam3_lora_tpu_torch.train.data\n"

@@ -1,0 +1,171 @@
+"""The port's remat policies (``vit_remat_policy``, ``enc_remat``,
+``enc_remat_ffn``, ``dec_remat``) and named saves (``ops/remat.py``) on the
+CPU:
+
+* every combination gives the same loss and adapter gradients as the
+  ``windows_only`` run, with every dropout rate above zero (the replays draw
+  the first pass's masks): loss within 1e-6, gradients within 1e-5, as
+  ``tests/test_remat_policies.py`` holds the JAX policies;
+* spies on the attention entries' computations show that a region which
+  keeps the attention output (``wo_block_mid``/``block_mid`` in the ViT,
+  ``enc_remat`` in the encoder) replays no attention forward, and that
+  ``full``/``windows_only`` do;
+* at ``bench.py``'s settings, a training step computes each kernel as often
+  as ``chip_smoke.bench_step_launches`` expects on the card;
+* an unknown policy is refused in training.
+
+The CPU takes the card's attention routes here (``window_attention.
+_FORCE_INTERPRET``), through the entries' plain versions.
+"""
+
+import collections
+
+import pytest
+import torch
+
+import chip_smoke
+from sam3_lora_tpu_torch.config import LoRAConfig, bench_lora_config, tiny_model_config
+from sam3_lora_tpu_torch.models import build_sam3_image_model, init_model
+from sam3_lora_tpu_torch.models.builder import dummy_batch
+from sam3_lora_tpu_torch.models.lora import trainable_parameters
+from sam3_lora_tpu_torch.ops import attention_kernel as ak
+from sam3_lora_tpu_torch.ops import gemm_int8, quant
+from sam3_lora_tpu_torch.ops import window_attention as wa
+from sam3_lora_tpu_torch.train.losses import compute_losses
+
+LORA = LoRAConfig(rank=4, alpha=8.0, dropout=0.1,
+                  target_modules=("qkv", "fc1", "fc2", "linear1", "linear2"))
+DROPOUT = dict(vit_drop_path_rate=0.2, enc_dropout=0.1, dec_dropout=0.1)
+POLICIES = ("full", "block_mid", "windows_only", "wo_block_mid")
+ENCODER = {"enc_remat": dict(enc_remat=True, enc_remat_ffn=False),
+           "enc_remat_ffn": dict(enc_remat=False, enc_remat_ffn=True),
+           "none": dict(enc_remat=False, enc_remat_ffn=False)}
+
+
+@pytest.fixture
+def card_routes(monkeypatch):
+    monkeypatch.setattr(wa, "_FORCE_INTERPRET", True)
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    """Counts of each attention entry's forward and backward computations
+    (not of replays that take a kept result back) and of K4's."""
+    calls = collections.Counter()
+    stack = []
+
+    def on_entry(fn):
+        def wrapped(entry, *a, **k):
+            stack.append(entry.__name__)
+            try:
+                return fn(entry, *a, **k)
+            finally:
+                stack.pop()
+        return wrapped
+
+    def counted(fn, suffix):
+        def wrapped(*a, **k):
+            calls[stack[-1] + suffix] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    def counted_gemm(*a, **k):
+        calls["int8_gemm_wres"] += 1
+        return gemm_int8.int8_gemm_wres_plain(*a, **k)
+
+    monkeypatch.setattr(ak, "_forward", on_entry(ak._forward))
+    monkeypatch.setattr(ak, "_backward", on_entry(ak._backward))
+    monkeypatch.setattr(ak, "attention_plain", counted(ak.attention_plain, ""))
+    monkeypatch.setattr(ak, "attention_bwd_plain", counted(ak.attention_bwd_plain, "_bwd"))
+    monkeypatch.setattr(gemm_int8, "int8_gemm_wres", counted_gemm)
+    return calls
+
+
+def _step(cfg, lora, seed=0):
+    """(loss, adapter gradients) of one training step with live adapters and
+    seeded dropout."""
+    model = build_sam3_image_model(cfg, lora=lora, device="cpu")
+    init_model(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    if cfg.base_quant != "none":
+        quant.prequantize_model(model, cfg.base_quant_min_dim)
+    named = trainable_parameters(model)
+    model.train()
+    model.seed_dropout(seed)
+    batch = dummy_batch(cfg, 2, with_targets=True)
+    loss = compute_losses(model(batch), batch.targets)["core_loss"]
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in named}
+
+
+@pytest.fixture(scope="module")
+def windows_only_step():
+    return _step(tiny_model_config(**DROPOUT), LORA)
+
+
+COMBINATIONS = [(p, e, d) for p in POLICIES for e in ENCODER for d in (False, True)
+                if (p, e, d) != ("windows_only", "enc_remat", False)]  # the reference run
+
+
+@pytest.mark.parametrize("policy,encoder,dec_remat", COMBINATIONS)
+def test_policies_match_windows_only(windows_only_step, policy, encoder, dec_remat):
+    cfg = tiny_model_config(vit_remat_policy=policy, dec_remat=dec_remat, **ENCODER[encoder],
+                            **DROPOUT)
+    ref_loss, ref = windows_only_step
+    loss, grads = _step(cfg, LORA)
+    assert loss == pytest.approx(ref_loss, abs=1e-6)
+    assert sorted(grads) == sorted(ref)
+    for n in ref:
+        torch.testing.assert_close(grads[n], ref[n], rtol=0, atol=1e-5, msg=n)
+
+
+@pytest.mark.parametrize("policy,encoder,win,enc", [
+    ("windows_only", "enc_remat", 2, 1),   # windowed blocks replay; the encoder keeps o
+    ("full", "none", 2, 1),                # every block replays, globals included
+    ("wo_block_mid", "enc_remat", 1, 1),   # no attention replays
+    ("block_mid", "enc_remat_ffn", 1, 1),
+])
+def test_kept_attention_outputs_are_not_replayed(card_routes, spies, policy, encoder, win, enc):
+    cfg = tiny_model_config(vit_remat_policy=policy, flash_attention_min_seq=16,
+                            **ENCODER[encoder])
+    _step(cfg, LORA)
+    n_global = len(cfg.vit_global_blocks)
+    n_win = cfg.vit_depth - n_global
+    glob = 2 if policy == "full" else 1
+    assert spies["window_attention_rope_packed"] == win * n_win
+    assert spies["long_attention_rope_packed"] == glob * n_global
+    assert spies["long_attention_packed"] == enc * cfg.enc_layers
+    # one backward each: the kept outputs feed the backward kernels
+    assert spies["window_attention_rope_packed_bwd"] == n_win
+    assert spies["long_attention_packed_bwd"] == cfg.enc_layers
+
+
+def test_bench_settings_launch_counts_match_chip_smoke(card_routes, spies):
+    """A CPU rehearsal of chip_smoke's bench-train counts: bench.py's
+    settings on a tiny config whose int8 gate covers the ViT and the text
+    encoder alone, as the full config's does."""
+    cfg = tiny_model_config(
+        d_model=16, enc_heads=2, dec_heads=2, base_quant="int8", base_quant_min_dim=32,
+        param_dtype="bfloat16", vit_remat_policy="wo_block_mid", enc_remat=False,
+        enc_remat_ffn=True, dec_remat=False, flash_attention_min_seq=16)
+    model = build_sam3_image_model(cfg, lora=bench_lora_config(), device="cpu")
+    quantized = [n for n, m in model.named_modules() if getattr(m, "weight_scale", None) is not None]
+    assert quantized and all(".trunk." in n or "language_backbone" in n for n in quantized)
+    _step(cfg, bench_lora_config())
+    want = chip_smoke.bench_step_launches(cfg)
+    assert dict(spies) == want
+
+
+def test_unknown_policy_rejected_in_training():
+    cfg = tiny_model_config(vit_remat_policy="nonsense")
+    model = build_sam3_image_model(cfg, device="cpu")
+    init_model(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model(dummy_batch(cfg, 1))  # eval mode runs no policy
+    model.train()
+    model.seed_dropout(0)
+    with pytest.raises(ValueError, match="vit_remat_policy"):
+        model(dummy_batch(cfg, 1, with_targets=True))

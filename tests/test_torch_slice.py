@@ -26,6 +26,7 @@ from sam3_lora_tpu_torch.inference import SAM3LoRAInference
 from sam3_lora_tpu_torch.models import Batch, GeoPrompt, build_sam3_image_model
 from sam3_lora_tpu_torch.models import layers as port_layers
 from sam3_lora_tpu_torch.models import vit as port_vit
+from sam3_lora_tpu_torch.ops import window_attention as port_wa
 from sam3_lora_tpu_torch.models.lora import save_lora_weights
 from sam3_lora_tpu_torch.models.tokenizer import get_default_tokenizer
 from sam3_lora_tpu_torch.utils.checkpoint import load_jax_params
@@ -148,6 +149,7 @@ def test_predict_matches_jax(tiny, monkeypatch):
 def test_wide_config_runs_the_kernel_entry_points(monkeypatch):
     monkeypatch.setattr(wa, "_FORCE_INTERPRET", True)
     monkeypatch.setattr(la, "_FORCE_INTERPRET", True)
+    monkeypatch.setattr(port_wa, "_FORCE_INTERPRET", True)  # the port's card routes on the CPU
     calls = {"K1": 0, "K2": 0, "K3": 0}
 
     def spy(mod, name, key):
@@ -159,7 +161,7 @@ def test_wide_config_runs_the_kernel_entry_points(monkeypatch):
 
         monkeypatch.setattr(mod, name, wrapped)
 
-    spy(port_vit, "window_attention_rope_packed_qkv", "K1")
+    spy(port_wa, "window_attention_rope_packed_qkv", "K1")
     spy(port_vit, "long_attention_rope_packed_qkv", "K2")
     spy(port_layers, "long_attention_packed", "K3")
     cfg = tiny_model_config(**WIDE)
