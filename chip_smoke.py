@@ -2,9 +2,9 @@
 
 Phases (each prints its lines; any failure raises and exits non-zero):
   1. device      - the card's name and power limit; TF32 off for fp32 math.
-  2. build       - compile csrc/attention_fwd.cu, csrc/attention_bwd.cu and
-                   csrc/gemm_int8.cu with nvcc (one process per source, in
-                   parallel).
+  2. build       - compile csrc/attention_fwd.cu, csrc/attention_bwd.cu,
+                   csrc/gemm_int8.cu and csrc/probe_window.cu with nvcc (one
+                   process per source, in parallel).
   3. kernels     - each attention entry point's forward kernel against its
                    plain PyTorch version, on the operands the serving path
                    hands it; the backward kernels (and the forward's
@@ -49,6 +49,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
+ 12. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+                   window_cost, dma_floor, packed) at bench.py's batch 8
+                   through their rows(): every stage rung (K1's own kernel
+                   at each stage), op rate, work-per-CTA sweep and the
+                   packed forward and backward, timed, each timed output
+                   held against its plain version's on the same operands,
+                   with the plain version's time, the bound, a yardstick and
+                   the row's own launches; the full rung bit for bit equal to
+                   attention_cuda and within 10% of its time; then
+                   packed.check(), the pair forms against the per-head math.
+                   No row may read bound/time over 1.05.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 """
 
@@ -71,6 +82,9 @@ from sam3_lora_tpu_torch.config import (
     LoRAConfig, ModelConfig, TrainConfig, bench_lora_config, bench_model_config, tiny_model_config,
 )
 from sam3_lora_tpu_torch.inference import SAM3LoRAInference
+from sam3_lora_tpu_torch.measure import (
+    KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, roofline,
+)
 from sam3_lora_tpu_torch.models import Batch, build_sam3_image_model, init_model
 from sam3_lora_tpu_torch.models.layers import LoRALinear
 from sam3_lora_tpu_torch.models.lora import trainable_parameters
@@ -89,25 +103,14 @@ from sam3_lora_tpu_torch.ops.window_attention import (
     window_attention_rope_packed_plain,
 )
 from sam3_lora_tpu_torch.ops.window_qkv import window_attention_qkv, window_attention_rope_qkv
+from sam3_lora_tpu_torch.ops import probe_kernels
+from sam3_lora_tpu_torch.probes import dma_floor, format_check, format_row, packed, window_cost
 from sam3_lora_tpu_torch.train.data import DataLoader, Sample
 from sam3_lora_tpu_torch.train.losses import compute_losses
 from sam3_lora_tpu_torch.train.prefetch import batch_to_device
 from sam3_lora_tpu_torch.train.trainer import Trainer
 
 SEED = 0
-# max |kernel - plain| <= KERNEL_RTOL * max |plain|. Both round an fp32 result
-# to bf16 and may land one ulp apart, at most 2**-7 of max |plain|; the
-# kernel's bf16 P adds less. About 2.5 ulps at the largest output. On an
-# H100 (700 W) the forward errors were 0.22x (K1), 0.24x (K2) and 0.19x (K3)
-# of the bound; a copy of the kernel that skipped its second K/V tile erred
-# by 27x, 13x and 14x of it.
-KERNEL_RTOL = 2e-2
-# The backward's gradients: max |kernel - plain| <= KERNEL_BWD_RTOL * max
-# |plain| per gradient; the kernel also rounds P and dS to bf16 before their
-# products. Measured on an H100 (700 W) at 0.16x-0.38x of 2e-2 (at most one
-# bf16 ulp of the largest gradient); a copy of the kernel that skipped the
-# second query tile of its dK/dV pass erred by 15x-43x of 2e-2 on dK and dV.
-KERNEL_BWD_RTOL = 1.5e-2
 LSE_ATOL = 2e-3    # natural-log units; measured 6.4e-4 (K1, bf16-rounded rotated q, k)
 SMALL_TOL = 5e-2   # bf16 on the card against fp32 on the CPU, through the whole small model
 # one training step of the small model, bf16 on the card against fp32 on the
@@ -129,10 +132,6 @@ GEMM_RTOL = 8e-3
 FWD_SOURCE = "sam3_lora_tpu_torch/csrc/attention_fwd.cu"
 BWD_SOURCE = "sam3_lora_tpu_torch/csrc/attention_bwd.cu"
 GEMM_SOURCE = "sam3_lora_tpu_torch/csrc/gemm_int8.cu"
-# NVIDIA H100 SXM dense peaks and memory rate (NVIDIA's data sheet)
-PEAK_BF16 = 989e12
-PEAK_INT8 = 1979e12
-MEM_RATE = 3.35e12
 PROMPTS = (["crack"], ["crack", "wall"], ["crack", "wall", "stain"])
 TRAIN_BATCH = 4
 TRAIN_STEPS = 4  # one warm-up, three timed
@@ -145,20 +144,6 @@ WINDOW_ROUTES = (wa.window_attention_packed, wa.window_attention_grouped,
                  window_attention_rope_qkv)
 ATTENTION = ENTRIES + WINDOW_ROUTES
 BENCH_BATCH = 8
-
-
-def median_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def rope_tables(head_dim: int, side: int, scale_pos: float):
@@ -205,25 +190,6 @@ def _split(entry, args):
     if entry is long_attention_rope_packed:
         return args
     return (*args, None, None)
-
-
-def roofline(t_ops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the seconds the operations take at
-    the card's peak for their type and the bytes over its memory rate."""
-    t_bytes = nbytes / MEM_RATE
-    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
-
-
-def attention_work(heads: int, l: int, head_dim: int, backward: bool):
-    """(operations, bytes) of one attention call over ``heads`` (batch x
-    head) sequences of L rows of dh: 4*L^2*dh per sequence forward (QK^T and
-    PV), 2.5x that backward; q, k, v (and o, do, the fp32 lse) read once, o
-    (dq, dk, dv) written once."""
-    elems = heads * l * head_dim
-    ops = 4.0 * l * l * head_dim * heads
-    if backward:
-        return 2.5 * ops, 8 * elems * 2 + heads * l * 4
-    return ops, 4 * elems * 2
 
 
 def sdpa_operands(qh, kh, vh, cos, sin):
@@ -747,31 +713,46 @@ def phase_train(g: torch.Generator, int8: bool = False):
     gemm_int8.GEMM_BWD_KERNEL = int8
     cfg = model_config(int8)
     launches, _, times, peak = fit(tag, g, cfg, LORA, TRAIN_BATCH, TRAIN_STEPS)
-    n_global = len(cfg.vit_global_blocks)
-    n_win = cfg.vit_depth - n_global
-    s = TRAIN_STEPS
-    # windowed ViT blocks run under remat: forward, replay in the backward,
-    # then one backward each; global blocks once; the fusion-encoder layers
-    # run under remat too, but keep their attention output (no replay)
-    want = {"window_attention_rope_packed": 2 * n_win * s, "long_attention_rope_packed": n_global * s,
-            "long_attention_packed": cfg.enc_layers * s,
-            "window_attention_rope_packed_bwd": n_win * s,
-            "long_attention_rope_packed_bwd": n_global * s,
-            "long_attention_packed_bwd": cfg.enc_layers * s}
+    want = {k: v * TRAIN_STEPS for k, v in train_step_launches(cfg).items()}
     if int8:
-        # K4: the 4 GEMMs of every ViT block, again in the windowed blocks'
-        # replays, and the text encoder's 3 per layer; K6: the dx of every
-        # block's GEMMs that pass the width gate (fc1, fc2), once per step
-        # (the text encoder has no adapters, so no gradient flows through it)
+        # K6: the dx of every block's GEMMs that pass the width gate (fc1,
+        # fc2), once per step (the text encoder has no adapters, so no
+        # gradient flows through it)
         d, hid = cfg.vit_dim, cfg.vit_mlp_hidden
         vit_kn = ((d, 3 * d), (d, d), (d, hid), (hid, d))
         m = TRAIN_BATCH * cfg.feat_size ** 2
-        want["int8_gemm_wres"] = (4 * cfg.vit_depth + 4 * n_win + 3 * cfg.text_layers) * s
-        want["bf16_gemm_wres_nt"] = cfg.vit_depth * s * sum(
+        want["bf16_gemm_wres_nt"] = cfg.vit_depth * TRAIN_STEPS * sum(
             gemm_int8.supported_nt(m, k, n) for k, n in vit_kn)
     check_launches(tag, launches, want)
     gemm_int8.GEMM_BWD_KERNEL = False
     return launches, times, peak
+
+
+def train_step_launches(cfg: ModelConfig) -> dict:
+    """Attention and K4 launches of one training step at the ``windows_only``
+    ViT policy and ``enc_remat`` (the defaults; LORA's adapters, qkv among
+    them): the windowed ViT blocks run under remat, forward, replay in the
+    backward, then one backward each; global blocks once; the fusion-encoder
+    layers run under remat too, but keep their attention output (no replay).
+    In the int8 tier, K4 for the 4 GEMMs of every ViT block and the text
+    encoder's 3 per layer, and again in the windowed blocks' replays: qkv,
+    proj and fc1, and fc2 where the block's drop-path mask, saved after fc2,
+    pulls the replay through it (a rate above 0: every block but the first;
+    ``LoRALinear.forward`` puts fc2's frozen product last)."""
+    n_global = len(cfg.vit_global_blocks)
+    n_win = cfg.vit_depth - n_global
+    want = {"window_attention_rope_packed": 2 * n_win, "long_attention_rope_packed": n_global,
+            "long_attention_packed": cfg.enc_layers,
+            "window_attention_rope_packed_bwd": n_win,
+            "long_attention_rope_packed_bwd": n_global,
+            "long_attention_packed_bwd": cfg.enc_layers}
+    if cfg.base_quant != "none":
+        rates = np.linspace(0.0, cfg.vit_drop_path_rate, cfg.vit_depth)
+        fc2_replays = sum(1 for i, r in enumerate(rates)
+                          if r > 0 and i not in cfg.vit_global_blocks)
+        want["int8_gemm_wres"] = (4 * cfg.vit_depth + 3 * n_win + fc2_replays
+                                  + 3 * cfg.text_layers)
+    return want
 
 
 def bench_step_launches(cfg: ModelConfig) -> dict:
@@ -786,17 +767,17 @@ def bench_step_launches(cfg: ModelConfig) -> dict:
       fc1/fc2, not qkv, so no gradient is asked of anything before it;
     * K4 for the 4 GEMMs of every ViT block and the text encoder's 3 per
       layer, and again in the windowed blocks' replays: qkv (not the first
-      block's attention region, which nothing asks to replay), and fc1 and
-      fc2 (a replay runs its region up to its last saved tensor, fc2's
-      adapter input, where XLA drops fc2's product). No gradient crosses the
-      text encoder, which has no adapter."""
+      block's attention region, which nothing asks to replay) and fc1. The
+      MLP region's replay stops before fc2's frozen product, as XLA drops
+      it: ``LoRALinear.forward`` computes it last and it saves nothing. No
+      gradient crosses the text encoder, which has no adapter."""
     n_global = len(cfg.vit_global_blocks)
     n_win = cfg.vit_depth - n_global
     k1 = "window_attention_rope_packed" if cfg.vit_use_rope else "window_attention_packed"
     return {k1: n_win, k1 + "_bwd": n_win - 1,
             "long_attention_rope_packed": n_global, "long_attention_rope_packed_bwd": n_global,
             "long_attention_packed": cfg.enc_layers, "long_attention_packed_bwd": cfg.enc_layers,
-            "int8_gemm_wres": 4 * cfg.vit_depth + 3 * cfg.text_layers + (n_win - 1) + 2 * n_win}
+            "int8_gemm_wres": 4 * cfg.vit_depth + 3 * cfg.text_layers + (n_win - 1) + n_win}
 
 
 def phase_bench_train(g: torch.Generator):
@@ -1066,6 +1047,49 @@ def phase_small_reference(tag: str = "small", int8: bool = False, routes: bool =
     return bwd
 
 
+PROBES = (window_cost, dma_floor, packed)
+PROBE_REPS = 20
+PROBE_ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "table_row",
+                  "passes", "attention_cuda_ms")
+PROBE_BOUND_SLACK = 1.05  # bound/time above this: the kernel skipped work it claims
+PROBE_FULL_SPREAD = 0.10  # the full rung's time against attention_cuda's
+
+
+def phase_probes(g: torch.Generator):
+    """The window-kernel probes at batch 8, their main path (``rows``) with
+    the counts set to 0 before; each row holds its timed output against its
+    plain version's on the same operands and counts its own launches. Then
+    the script's check of the pair forms, whose launches count nowhere.
+    Returns the kernel rows."""
+    t0 = time.perf_counter()
+    probe_kernels.reset_counts()
+    rows = [r for m in PROBES for r in m.rows(g, BENCH_BATCH, PROBE_REPS, "cuda")]
+    torch.cuda.synchronize()
+    failed = []
+    for r in rows:
+        print(f"probes {format_row(r)}", flush=True)
+        if not r["ok"]:
+            failed.append(f"{r['name']}: max abs err {r['max_abs_err']:.3e} over {r['limit']:.3e}")
+        if r["bound_ms"] / r["ms"] > PROBE_BOUND_SLACK:
+            failed.append(f"{r['name']}: {r['ms']:.4f} ms under its bound {r['bound_ms']:.4f} ms")
+        if "attention_cuda_ms" in r:
+            if not r["equals_attention_cuda"]:
+                failed.append(f"{r['name']}: output differs from attention_cuda's")
+            if abs(r["ms"] / r["attention_cuda_ms"] - 1) > PROBE_FULL_SPREAD:
+                failed.append(f"{r['name']}: {r['ms']:.4f} ms against attention_cuda's "
+                              f"{r['attention_cuda_ms']:.4f} ms")
+    for name, c in packed.check(g).items():
+        print(f"probes {format_check(name, c)}", flush=True)
+        if not c[2]:
+            failed.append(f"{name}: max abs err {c[0]:.3e} over {c[1]:.3e}")
+    print(f"probes: {len(rows)} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    torch.cuda.empty_cache()
+    return [{k: r[k] for k in PROBE_ROW_KEYS if k in r} for r in rows]
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1116,6 +1140,7 @@ def main():
             row["launches"] = train8[name]
         else:
             row["launches"] = (train[name] + bench[name]) if name.endswith("_bwd") else serve[name]
+    rows += phase_probes(g)
     idle = [row["name"] for row in rows if not row["launches"]]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")

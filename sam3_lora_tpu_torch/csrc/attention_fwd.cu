@@ -51,168 +51,14 @@
 // Softmax: exact max-shift. The JAX kernels default to a clamp form
 // exp(min(s, 70)) / (sum + 1e-35), which equals this whenever the row max is
 // at most 70; above that the clamp saturates and this kernel does not.
+//
+// The kernel's body is in attention_fwd.cuh, templated on a stage: this
+// source builds STAGE = FULL, and the window-kernel probes (probe_window.cu)
+// build the other rungs from the same body.
 
-#include "attention_common.cuh"
-
-namespace {
+#include "attention_fwd.cuh"
 
 using namespace sam3;
-
-template <int DH, bool ROPE>
-__global__ void __launch_bounds__(THREADS)
-attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, const float* __restrict__ cos_t,
-                     const float* __restrict__ sin_t, int L, int P, Strides sq,
-                     Strides sk, Strides sv, Strides so, float scale) {
-  using Lay = Layout<DH>;
-  constexpr int LDH = Lay::LDH;
-  constexpr int KS = DH / 16;  // k16 steps over the head dim
-  constexpr int NT = BK / 8;   // n8 tiles of scores per K tile
-  constexpr int OT = DH / 8;   // n8 tiles of the output
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + Lay::tile;
-  bf16* Vs = Ks + Lay::tile;
-
-  const int head = blockIdx.y;
-  const long long n = head / P;
-  const int p = head % P;
-  const int q0 = blockIdx.x * BQ;
-  const bf16* kb = k + sk.at(n, p);
-  const bf16* vb = v + sv.at(n, p);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, column pair
-
-  load_tile<DH, ROPE>(Qs, q + sq.at(n, p) + (long long)q0 * sq.l, sq.l,
-                      min(BQ, L - q0), cos_t, sin_t, q0);
-  __syncthreads();
-  uint32_t qf[KS][4];  // this warp's 16 query rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a(qf[kk], Qs + warp * 16 * LDH + kk * 16, LDH);
-
-  const float sl2 = scale * LOG2E;  // exp(x) = exp2(x * log2 e)
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
-  float acc[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    const int kv_valid = min(BK, L - k0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DH, ROPE>(Ks, kb + (long long)k0 * sk.l, sk.l, kv_valid, cos_t, sin_t, k0);
-    load_tile<DH, false>(Vs, vb + (long long)k0 * sv.l, sv.l, kv_valid, nullptr, nullptr, 0);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, fp32 in registers
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];  // keys j*8.. (b[0], b[1]) and j*8+8.. (b[2], b[3])
-        load_b_nk(b, Ks + j * 8 * LDH + kk * 16, LDH);
-        mma(s[j], qf[kk], b[0], b[1]);
-        mma(s[j + 1], qf[kk], b[2], b[3]);
-      }
-    }
-
-    // online softmax on the accumulators (exact max shift, fp32)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1);
-        const float x = col < kv_valid ? s[j][e] * sl2 : -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = exp2f(m_run[r] - m_new);  // 0 on the first tile
-      m_run[r] = m_new;
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    uint32_t pf[BK / 16][4];  // P as A fragments, one per 16-key step
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float p0 = exp2f(s[j][0] - m_run[0]), p1 = exp2f(s[j][1] - m_run[0]);
-      const float p2 = exp2f(s[j][2] - m_run[1]), p3 = exp2f(s[j][3] - m_run[1]);
-      l_run[0] += p0 + p1;
-      l_run[1] += p2 + p3;
-      pf[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];  // dims j*8.. (b[0], b[1]) and j*8+8.. (b[2], b[3])
-        load_b_kn(b, Vs + kk * 16 * LDH + j * 8, LDH);
-        mma(acc[j], pf[kk], b[0], b[1]);
-        mma(acc[j + 1], pf[kk], b[2], b[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row >= L) continue;
-    const float inv = 1.f / l_run[r];
-    bf16* dst = o + so.at(n, p) + (long long)row * so.l + t * 2;
-#pragma unroll
-    for (int j = 0; j < OT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
-          __floats2bfloat162_rn(acc[j][r * 2] * inv, acc[j][r * 2 + 1] * inv);
-    // natural log-sum-exp of the scaled scores: ln(2^m * l)
-    if (lse != nullptr && t == 0)
-      lse[(long long)head * L + row] = (m_run[r] + log2f(l_run[r])) * LN2;
-  }
-}
-
-template <int DH, bool ROPE>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
-                   const float* cos_t, const float* sin_t, int n, int l, int p,
-                   Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                   cudaStream_t stream) {
-  constexpr int bytes = 3 * Layout<DH>::tile * sizeof(bf16);  // Q, K, V
-  auto kern = attention_fwd_kernel<DH, ROPE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((l + BQ - 1) / BQ, n * p);
-  kern<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, cos_t, sin_t, l, p,
-      sq, sk, sv, so, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
 
 // C entry point, bound with ctypes. q, k, v and o are (n, p, l, dh) bf16
 // views, each given by its (n, p, l) strides in elements (`strides`: 4 x 3, in
@@ -232,7 +78,7 @@ extern "C" int sam3_attention_fwd(const void* q, const void* k, const void* v,
   const Strides sq{z[0], z[1], z[2]}, sk{z[3], z[4], z[5]}, sv{z[6], z[7], z[8]},
       so{z[9], z[10], z[11]};
 #define SAM3_LAUNCH(DH_, ROPE_) \
-  launch<DH_, ROPE_>(q, k, v, o, m, c, s, n, l, p, sq, sk, sv, so, scale, st)
+  launch_fwd<DH_, ROPE_, FULL>(q, k, v, o, m, c, s, n, l, p, sq, sk, sv, so, scale, st)
   if (dh == 64) return rope ? SAM3_LAUNCH(64, true) : SAM3_LAUNCH(64, false);
   if (dh == 32) return rope ? SAM3_LAUNCH(32, true) : SAM3_LAUNCH(32, false);
 #undef SAM3_LAUNCH

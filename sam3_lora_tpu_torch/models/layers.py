@@ -231,8 +231,8 @@ class LoRALinear(nn.Module):
     layer when ``min(in, out) >= base_quant_min_dim``; the layer then has a
     ``weight_scale`` (out,), the JAX ``kernel_scale``. A float weight is
     quantized on every call (``int8_matmul``); an int8 weight (after
-    ``prequantize_model``) runs ``int8_matmul_prequant``, then the bias, then
-    the adapter branch. With ``GEMM_LORA_FUSED`` on, an int8 weight with an
+    ``prequantize_model``) runs ``int8_matmul_prequant``. The adapter branch
+    runs before the frozen product and is added after the bias. With ``GEMM_LORA_FUSED`` on, an int8 weight with an
     adapter of rank % 8 == 0 (in eval, or with LoRA dropout 0) takes the
     fused product (K5), and the bias is added after the fused sum.
     """
@@ -289,12 +289,27 @@ class LoRALinear(nn.Module):
         dt = self.spec.dtype
         x = x.to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
-        if self.weight_scale is None:
-            y = F.linear(x, self.weight.to(dt), bias)
-        elif self._fused():
+        if self._fused():
             y = int8_lora_matmul_prequant(x, self.weight, self.weight_scale, self.lora_a,
                                           self.lora_b, self.scaling)
             return y if bias is None else y + bias
+        # The adapter branch runs before the frozen product, which saves its
+        # operands for the backward before it computes (F.linear) or saves
+        # nothing (the prequantized int8 Function keeps it on ctx). So the
+        # product is the last work of a checkpoint region that ends here, and
+        # the region's replay stops before it: no gradient reads its value,
+        # as XLA drops it. The sum keeps the order base + bias + adapter.
+        delta = None
+        if self.lora_a is not None:
+            xin = x
+            if self.training and self.spec.lora is not None:
+                xin = dropout(x, self.spec.lora.dropout, self.spec)  # adapter input only
+            # adapters are stored fp32; the skinny products run in the compute
+            # dtype with fp32 accumulation, as in the JAX module
+            h = F.linear(xin, self.lora_a.to(dt))
+            delta = F.linear(h.float(), self.lora_b.to(dt).float()) * self.scaling
+        if self.weight_scale is None:
+            y = F.linear(x, self.weight.to(dt), bias)
         else:
             bwd_int8 = self.spec.model.base_quant == "int8_bwd"
             if self.weight.dtype == torch.int8:
@@ -303,16 +318,7 @@ class LoRALinear(nn.Module):
                 y = int8_matmul(x, self.weight, bwd_int8)
             if bias is not None:
                 y = y + bias
-        if self.lora_a is not None:
-            xin = x
-            if self.training and self.spec.lora is not None:
-                xin = dropout(x, self.spec.lora.dropout, self.spec)  # adapter input only
-            # adapters are stored fp32; the skinny products run in the compute
-            # dtype with fp32 accumulation, as in the JAX module
-            h = F.linear(xin, self.lora_a.to(dt))
-            delta = F.linear(h.float(), self.lora_b.to(dt).float())
-            y = y + (delta * self.scaling).to(y.dtype)
-        return y
+        return y if delta is None else y + delta.to(y.dtype)
 
 
 class LayerNorm(nn.Module):

@@ -32,9 +32,10 @@ policies (``vit_remat_policy``): "full" replays every block in the backward;
 regions (norm1 -> attention, keeping the attention output, and the MLP
 branch), so x_mid is saved and no attention forward replays;
 "wo_block_mid" does that in the windowed blocks and leaves the global blocks
-unrematted. Where XLA drops forward work that no gradient needs, a torch
-replay runs its region to the last saved tensor: the MLP region replays fc2's
-product (see ``PERF.md``).
+unrematted. A torch replay runs its region up to the last saved tensor,
+where XLA drops any forward work no gradient needs: ``LoRALinear`` puts its
+adapter branch before the frozen product, so the MLP region's replay stops
+before fc2's product and runs norm2 and fc1 alone.
 """
 
 from __future__ import annotations

@@ -115,18 +115,22 @@ class _Int8Matmul(torch.autograd.Function):
 
 
 class _Int8MatmulPrequant(torch.autograd.Function):
-    """y = x . dequant(wq, ws)^T with the weight quantized offline."""
+    """y = x . dequant(wq, ws)^T with the weight quantized offline.
+
+    The frozen wq, ws are the layer's own buffers, held on ``ctx`` and not
+    saved: a Function saves its tensors after its forward has run, so a
+    saved weight would make a checkpoint replay run this product only to
+    reach the save (``LoRALinear.forward``)."""
 
     @staticmethod
     def forward(ctx, x, wq, ws, bwd_int8):
-        ctx.save_for_backward(wq, ws)
+        ctx.wq, ctx.ws = wq, ws
         ctx.bwd_int8 = bwd_int8
         return _apply(x, wq, ws)
 
     @staticmethod
     def backward(ctx, dy):
-        wq, ws = ctx.saved_tensors
-        return _dx(dy, wq, ws, ctx.bwd_int8), None, None, None
+        return _dx(dy, ctx.wq, ctx.ws, ctx.bwd_int8), None, None, None
 
 
 class _Int8LoRAMatmulPrequant(torch.autograd.Function):

@@ -12,13 +12,18 @@ chip_smoke.py (bf16 output against the fp32-softmax plain version: about 2.5
 bf16 ulps at the largest output). K4 is held equal bit for bit (the same
 int8 values, an exact int32 sum, the same fp32 scaling); K5 and K6 within
 8e-3 * max |plain|, one bf16 ulp of the largest output (the bf16 products'
-sums run in another order)."""
+sums run in another order). The window-kernel probes (``ops/probe_kernels.py``):
+every stage rung and op rate against its plain version, the full rung bit
+for bit equal to the production forward, the packed layout's backward."""
 
 import numpy as np
 import pytest
 import torch
 
-from sam3_lora_tpu_torch.ops import gemm_int8, quant, window_attention, window_qkv
+from sam3_lora_tpu_torch import probes
+from sam3_lora_tpu_torch.ops import (
+    attention_kernel, gemm_int8, probe_kernels, quant, window_attention, window_qkv,
+)
 from sam3_lora_tpu_torch.ops.attention import dot_product_attention
 from sam3_lora_tpu_torch.ops.attention_kernel import (
     attend_qkv,
@@ -360,3 +365,81 @@ def test_gemm_wrappers_reject_what_the_kernels_do_not_take(gen):
         gemm_int8.int8_lora_gemm_wres_cuda(x, wq, ws, a[:4], b[:, :4], 1.0)
     with pytest.raises(ValueError, match="K % 32"):
         gemm_int8.bf16_gemm_wres_nt_cuda(x[:, :1000].contiguous(), wq[:, :1000].contiguous(), ws)
+
+
+# ---- the window-kernel probes (ops/probe_kernels.py, csrc/probe_window.cu)
+
+def _heads(gen, n, p, l):
+    return [torch.randn(n, p, l, 64, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("l", [100, 576])
+@pytest.mark.parametrize("name", probe_kernels.STAGES)
+def test_probe_stages_match_plain(gen, name, l):
+    """Every rung, per head and (where it has one) in the block-diagonal
+    pair form, at 1 and several heads (pairs) per CTA; a ragged L too.
+    Copies bit for bit, the rest within RTOL; the per-head rung at 4 heads
+    per CTA (the sweep kernel) bit for bit equal to the forward kernel's
+    instance at 1, as both run the forward's body."""
+    q, k, v = _heads(gen, 4, 2, l)
+    ref = probe_kernels.stage_plain(q, k, v, name, 0.125)
+    forms = [(False, 1), (False, 4)]
+    if name in probe_kernels.PAIR_STAGES:
+        forms += [(True, 1), (True, 2)]
+    outs = {}
+    for pair, wpc in forms:
+        out = outs[pair, wpc] = probe_kernels.stage(q, k, v, name, 0.125, pair=pair, wpc=wpc)
+        torch.cuda.synchronize()
+        if name == "copy":
+            assert torch.equal(out, ref), (pair, wpc)
+        else:
+            _assert_matches(out, ref)
+    assert torch.equal(outs[False, 4], outs[False, 1])
+
+
+@pytest.mark.parametrize("l", [100, 576])
+def test_probe_full_rung_equals_attention_cuda(gen, l):
+    """The full rung is the production forward: bit for bit."""
+    q, k, v = _heads(gen, 8, 2, l)
+    out = probe_kernels.stage(q, k, v, "full", 0.125)
+    assert torch.equal(out, attention_kernel.attention_cuda(q, k, v, 0.125))
+
+
+@pytest.mark.parametrize("name", probe_kernels.OPS)
+def test_probe_ops_match_plain(gen, name):
+    """One 576 x 576 tile at 64 passes: fp32 within 1e-5 relative, bf16
+    within one ulp of the largest output."""
+    x = (torch.randn(576, 576, generator=gen, device="cuda").abs() + 0.5)
+    x = x.to(probe_kernels.op_dtype(name))
+    out = probe_kernels.op_rate(x, name, 64)
+    ref = probe_kernels.op_plain(x, name, 64)
+    err, limit, ok = probes.compare(out, ref, "bf16" if name.endswith("bf16") else "op32")
+    assert ok, (err, limit)
+
+
+def test_probe_pair_backward_matches_plain(gen):
+    """The packed layout's backward (the attention backward kernel on the
+    pair view) against the JAX-rounded plain version, per gradient."""
+    q, k, v, do = (probes.pair_view(torch.randn(8, 576, 128, generator=gen, device="cuda")
+                                    .to(torch.bfloat16)) for _ in range(4))
+    o, lse = attention_kernel.attention_cuda(q, k, v, 0.125, with_lse=True)
+    grads = probe_kernels.pair_bwd(q, k, v, o, lse, do, 0.125)
+    for a, b in zip(grads, probe_kernels.pair_bwd_plain(q, k, v, do, 0.125)):
+        err, limit, ok = probes.compare(a, b, "bwd")
+        assert ok, (err, limit)
+
+
+def test_probe_wrappers_count_and_check(gen):
+    probe_kernels.reset_counts()
+    q, k, v = _heads(gen, 4, 2, 576)
+    probe_kernels.stage(q, k, v, "qk_pv", 0.125, pair=True, wpc=2)
+    probe_kernels.op_rate(torch.ones(576, 576, device="cuda"), "add_f32", 1)
+    assert probe_kernels.stage.launches == {"qk_pv_pair_wpc2": 1}
+    assert probe_kernels.op_rate.launches == {"add_f32": 1}
+    with pytest.raises(ValueError, match="wpc"):
+        probe_kernels.stage(q, k, v, "full", 0.125, wpc=3)
+    with pytest.raises(ValueError, match="pair"):
+        probe_kernels.stage(q, k, v, "qk_exp_pv", 0.125, pair=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        probe_kernels.stage(*(t[..., :32] for t in (q, k, v)), "full", 0.125)

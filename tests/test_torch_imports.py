@@ -20,6 +20,9 @@ CODE = (
     "import sam3_lora_tpu_torch.ops.rle as r\n"
     "r.segmentation_to_mask({'size': [2, 2], 'counts': [1, 2, 1]}, 2, 2)\n"
     "import sam3_lora_tpu_torch.cli.train, sam3_lora_tpu_torch.train.data\n"
+    "import sam3_lora_tpu_torch.ops.probe_kernels, sam3_lora_tpu_torch.probes.window_cost\n"
+    "import sam3_lora_tpu_torch.measure\n"
+    "import sam3_lora_tpu_torch.probes.dma_floor, sam3_lora_tpu_torch.probes.packed\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"

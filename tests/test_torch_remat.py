@@ -10,8 +10,12 @@ CPU:
   keeps the attention output (``wo_block_mid``/``block_mid`` in the ViT,
   ``enc_remat`` in the encoder) replays no attention forward, and that
   ``full``/``windows_only`` do;
-* at ``bench.py``'s settings, a training step computes each kernel as often
-  as ``chip_smoke.bench_step_launches`` expects on the card;
+* the MLP region of the split policies (``block_mid``, ``wo_block_mid``)
+  replays fc1's frozen product and not fc2's, in the float and int8 tiers;
+* at ``bench.py``'s settings and at the ``windows_only`` default of
+  chip_smoke's train-int8, a training step computes each kernel as often as
+  ``chip_smoke.bench_step_launches`` / ``train_step_launches`` expect on the
+  card;
 * an unknown policy is refused in training.
 
 The CPU takes the card's attention routes here (``window_attention.
@@ -81,9 +85,9 @@ def spies(monkeypatch):
     return calls
 
 
-def _step(cfg, lora, seed=0):
+def _step(cfg, lora, seed=0, on_model=None):
     """(loss, adapter gradients) of one training step with live adapters and
-    seeded dropout."""
+    seeded dropout; ``on_model`` sees the model before the step."""
     model = build_sam3_image_model(cfg, lora=lora, device="cpu")
     init_model(model, torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -92,6 +96,8 @@ def _step(cfg, lora, seed=0):
                 p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
     if cfg.base_quant != "none":
         quant.prequantize_model(model, cfg.base_quant_min_dim)
+    if on_model is not None:
+        on_model(model)
     named = trainable_parameters(model)
     model.train()
     model.seed_dropout(seed)
@@ -120,6 +126,80 @@ def test_policies_match_windows_only(windows_only_step, policy, encoder, dec_rem
     assert sorted(grads) == sorted(ref)
     for n in ref:
         torch.testing.assert_close(grads[n], ref[n], rtol=0, atol=1e-5, msg=n)
+
+
+INT8 = dict(base_quant="int8", base_quant_min_dim=16)  # the gate covers the tiny ViT
+
+
+@pytest.fixture(scope="module")
+def windows_only_int8_step():
+    return _step(tiny_model_config(**INT8, **DROPOUT), LORA)
+
+
+@pytest.mark.parametrize("policy", ["block_mid", "wo_block_mid"])
+def test_split_policies_match_windows_only_int8(windows_only_int8_step, policy):
+    """The int8 tier, whose frozen product saves nothing for the backward,
+    gives the same numbers under the split policies."""
+    ref_loss, ref = windows_only_int8_step
+    loss, grads = _step(tiny_model_config(vit_remat_policy=policy, **INT8, **DROPOUT), LORA)
+    assert loss == pytest.approx(ref_loss, abs=1e-6)
+    assert sorted(grads) == sorted(ref)
+    for n in ref:
+        torch.testing.assert_close(grads[n], ref[n], rtol=0, atol=1e-5, msg=n)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("policy", ["block_mid", "wo_block_mid"])
+def test_mlp_replay_stops_before_fc2_frozen_product(monkeypatch, policy, tier):
+    """Under the split policies a windowed block computes qkv's and fc1's
+    frozen products twice (forward and replay) and proj's and fc2's once:
+    the MLP region's replay stops before fc2's product, which no gradient
+    reads, as XLA drops it. A spy counts each frozen product that ran to
+    its end (F.linear of the float tier, int8_matmul_prequant of the int8
+    one), by the layer whose weight it read."""
+    from sam3_lora_tpu_torch.models import layers
+
+    cfg = tiny_model_config(vit_remat_policy=policy, **DROPOUT,
+                            **(INT8 if tier == "int8" else {}))
+    calls, names = collections.Counter(), {}
+
+    def on_model(model):
+        for name, m in model.named_modules():
+            if ".trunk.blocks." in name and name.endswith(("qkv", "proj", "fc1", "fc2")):
+                names[id(m.weight)] = name.split(".trunk.blocks.")[1]
+
+    def spied(fn, weight_arg):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if id(a[weight_arg]) in names:
+                calls[names[id(a[weight_arg])]] += 1
+            return out
+        return wrapped
+
+    if tier == "int8":
+        monkeypatch.setattr(layers, "int8_matmul_prequant", spied(quant.int8_matmul_prequant, 1))
+    else:
+        monkeypatch.setattr(layers.F, "linear", spied(torch.nn.functional.linear, 1))
+    _step(cfg, LORA, on_model=on_model)
+    assert len(names) == 4 * cfg.vit_depth
+    for i in range(cfg.vit_depth):
+        replayed = policy == "block_mid" or i not in cfg.vit_global_blocks
+        twice = 2 if replayed else 1
+        got = {layer: calls[f"{i}.{path}"] for layer, path in (
+            ("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))}
+        assert got == {"qkv": twice, "proj": 1, "fc1": twice, "fc2": 1}, (i, got)
+
+
+def test_train_int8_launch_counts_match_chip_smoke(card_routes, spies):
+    """A CPU rehearsal of chip_smoke's train-int8 counts: the windows_only
+    policy, where a windowed block replays whole and its drop-path mask,
+    saved after fc2, pulls the replay through fc2's product in every block
+    whose rate is above 0."""
+    cfg = tiny_model_config(
+        d_model=16, enc_heads=2, dec_heads=2, base_quant="int8", base_quant_min_dim=32,
+        flash_attention_min_seq=16, vit_drop_path_rate=0.2)
+    _step(cfg, LORA)
+    assert dict(spies) == chip_smoke.train_step_launches(cfg)
 
 
 @pytest.mark.parametrize("policy,encoder,win,enc", [
