@@ -12,11 +12,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    operands of the training path at batch 4; the window
                    routes K1', W-g, W-p and W-qkv (with and without RoPE)
                    forward at serving's 9 windows and backward at batch 8;
-                   the int8 tier's K4/K5/K6 against their plain versions at
-                   every ViT shape at M = 5184 (serving) and 20736
-                   (training), the text shapes at M = 96 and a ragged M;
-                   bf16; errors, median CUDA-event times, roofline bounds and
-                   a library yardstick each.
+                   the int8 tier's K4/K6 (each its first pass and the
+                   TMA/wgmma mainloop of csrc/gemm_sm90.cuh) and K5 against
+                   their plain versions at every ViT shape at M = 5184
+                   (serving), 20736 (training) and 41472 (bench.py's batch;
+                   K4 and K6), the text shapes at M = 96 and a ragged M;
+                   K4 bit for bit; errors, median CUDA-event times, roofline
+                   bounds and a library yardstick each.
   4. slice       - SAM3LoRAInference at the full 848M config (bf16, seeded random
                    weights, nonzero adapters) answers three requests of 1, 2 and
                    3 prompts; every output finite and of the right shape; the
@@ -29,12 +31,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    timed steps with finite losses; step times, peak memory, and
                    forward and backward launch counts equal to the design's.
   7. train-int8  - the same with base_quant="int8" and GEMM_BWD_KERNEL on: K4
-                   forward (remat replays included) and K6 for the fc1/fc2 dx.
+                   forward (remat replays included, 284 a step) and K6 for
+                   the fc1/fc2 dx.
   8. bench-train - Trainer.fit at bench.py's configuration (bench_model_config
                    and bench_lora_config: bf16 storage, the int8 tier,
                    wo_block_mid, enc_remat_ffn, rank 32), batch 8: one
                    warm-up and three timed steps, launch counts equal to the
-                   design's (no attention forward replays).
+                   design's (no attention forward replays); then a fifth
+                   step under torch.profiler: the top 15 kernels by device
+                   time, K4's total and share, the device's busy share.
   9. routes      - one full-width bf16 model answers one request per window
                    route (default K1, QKV_NATIVE W-qkv, FUSE_ROPE off W-p,
                    _PACKED off W-g with and without RoPE): each runs its own
@@ -57,7 +62,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    held against its plain version's on the same operands,
                    with the plain version's time, the bound, a yardstick and
                    the row's own launches; the full rung bit for bit equal to
-                   attention_cuda and within 10% of its time; then
+                   attention_cuda and within 10% of its time (the two timed
+                   in turns); then
                    packed.check(), the pair forms against the per-head math.
                    No row may read bound/time over 1.05.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
@@ -83,7 +89,8 @@ from sam3_lora_tpu_torch.config import (
 )
 from sam3_lora_tpu_torch.inference import SAM3LoRAInference
 from sam3_lora_tpu_torch.measure import (
-    KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, roofline,
+    KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, profile_step,
+    roofline,
 )
 from sam3_lora_tpu_torch.models import Batch, build_sam3_image_model, init_model
 from sam3_lora_tpu_torch.models.layers import LoRALinear
@@ -451,14 +458,16 @@ GEMM_ROW_CASE = {"int8_gemm_wres": ("fc1", "train"), "int8_lora_gemm_wres": ("fc
 
 def gemm_cases():
     """(layer, path, M, K, N) of the int8 GEMMs on the main paths: the ViT's
-    at M = 5184 tokens (serving, one image) and 4 x 5184 (training, batch
-    4), the text encoder's at 3 prompts x 32 tokens, and a ragged M."""
+    at M = 5184 tokens (serving, one image), 4 x 5184 (training, batch 4)
+    and 8 x 5184 (bench.py's batch), the text encoder's at 3 prompts x 32
+    tokens, and a ragged M."""
     cfg = ModelConfig()
     d, hid, w = cfg.vit_dim, cfg.vit_mlp_hidden, cfg.text_width
     vit = {"qkv": (d, 3 * d), "proj": (d, d), "fc1": (d, hid), "fc2": (hid, d)}
     text = {"out_proj": (w, w), "c_fc": (w, 4 * w), "c_proj": (4 * w, w)}
     tokens = cfg.feat_size ** 2
-    cases = [(name, path, m, k, n) for path, m in (("serve", tokens), ("train", TRAIN_BATCH * tokens))
+    cases = [(name, path, m, k, n) for path, m in (("serve", tokens), ("train", TRAIN_BATCH * tokens),
+                                                   ("bench", BENCH_BATCH * tokens))
              for name, (k, n) in vit.items()]
     cases += [(name, "text", len(PROMPTS[-1]) * cfg.text_context_length, k, n)
               for name, (k, n) in text.items()]
@@ -466,9 +475,9 @@ def gemm_cases():
 
 
 def phase_gemm_kernels(g: torch.Generator):
-    """K4 (every case), K5 (the ViT cases, rank 8) and K6 (the ViT cases) on
-    the main path's shapes against their plain versions; returns (one JSON
-    row per kernel at GEMM_ROW_CASE, failures)."""
+    """K4 (every case), K5 (the serving, training and ragged ViT cases, rank
+    8) and K6 (the ViT cases) on the main path's shapes against their plain
+    versions; returns (one JSON row per kernel at GEMM_ROW_CASE, failures)."""
     rows, failed = {}, []
     rank = LORA.rank
     for layer, path, m, k, n in gemm_cases():
@@ -483,11 +492,12 @@ def phase_gemm_kernels(g: torch.Generator):
                 "bf16_mm_ms": median_ms(lambda: torch.matmul(x, w_deq.t()))}
         calls = [("int8_gemm_wres", (x, wq, ws), gemm_int8.int8_gemm_wres_plain,
                   2.0 * m * k * n / PEAK_INT8, m * k * 2 + n * k + n * 4 + m * n * 2, None)]
-        if path != "text":
+        if path in ("serve", "train", "ragged"):
             calls.append(("int8_lora_gemm_wres", (x, wq, ws, a, b, LORA.scaling),
                           gemm_int8.int8_lora_gemm_wres_plain,
                           2.0 * m * k * n / PEAK_INT8 + 2.0 * m * rank * (k + n) / PEAK_BF16,
                           m * k * 2 + n * k + n * 4 + rank * (k + n) * 2 + m * n * 2, None))
+        if path != "text":
             calls.append(("bf16_gemm_wres_nt", (dy, wq, ws), gemm_int8.bf16_gemm_wres_nt_plain,
                           2.0 * m * k * n / PEAK_BF16, m * n * 2 + n * k + n * 4 + m * k * 2,
                           lambda: torch.matmul(dy, w_deq)))
@@ -655,10 +665,12 @@ class SyntheticSamples:
                       is_exhaustive=True)
 
 
-def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch: int, steps: int):
+def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch: int, steps: int,
+        profile: bool = False):
     """Trainer.fit over ``steps`` batches of ``batch`` SyntheticSamples at
     ``cfg``, adapters drawn live. Returns (launches, losses, step times,
-    peak bytes)."""
+    peak bytes, profile): with ``profile``, ``measure.profile_step`` of one
+    more step after the counts are read, else None."""
     with tempfile.TemporaryDirectory() as out_dir:
         tcfg = TrainConfig(batch_size=batch, num_epochs=1, warmup_steps=0, logging_steps=1,
                            num_workers=2, seed=SEED, output_dir=out_dir)
@@ -685,6 +697,10 @@ def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch:
         peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(out_dir, "train_stats.json")) as f:
             records = [json.loads(line) for line in f]
+        prof = None
+        if profile:
+            first = batch_to_device(next(iter(loader.epoch(0))), "cuda")
+            prof = profile_step(lambda: trainer.train_step(first))
     losses = [r["loss"] for r in records]
     times = [r["step_time_s"] for r in records]
     print(f"{tag}: {result['steps']} steps of batch {batch} in {wall:.2f} s; losses "
@@ -695,7 +711,7 @@ def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch:
         raise AssertionError(f"{tag}: {result['steps']} steps, losses {losses}")
     del trainer
     torch.cuda.empty_cache()
-    return launches, losses, times, peak
+    return launches, losses, times, peak, prof
 
 
 def check_launches(tag: str, launches: dict, want: dict) -> None:
@@ -712,7 +728,7 @@ def phase_train(g: torch.Generator, int8: bool = False):
     tag = "train-int8" if int8 else "train"
     gemm_int8.GEMM_BWD_KERNEL = int8
     cfg = model_config(int8)
-    launches, _, times, peak = fit(tag, g, cfg, LORA, TRAIN_BATCH, TRAIN_STEPS)
+    launches, _, times, peak, _ = fit(tag, g, cfg, LORA, TRAIN_BATCH, TRAIN_STEPS)
     want = {k: v * TRAIN_STEPS for k, v in train_step_launches(cfg).items()}
     if int8:
         # K6: the dx of every block's GEMMs that pass the width gate (fc1,
@@ -736,9 +752,9 @@ def train_step_launches(cfg: ModelConfig) -> dict:
     layers run under remat too, but keep their attention output (no replay).
     In the int8 tier, K4 for the 4 GEMMs of every ViT block and the text
     encoder's 3 per layer, and again in the windowed blocks' replays: qkv,
-    proj and fc1, and fc2 where the block's drop-path mask, saved after fc2,
-    pulls the replay through it (a rate above 0: every block but the first;
-    ``LoRALinear.forward`` puts fc2's frozen product last)."""
+    proj and fc1. The replay stops before fc2's frozen product, as XLA drops
+    it: ``LoRALinear.forward`` computes it last and the drop-path mask after
+    it is held past the region (``models/layers.py::dropout``)."""
     n_global = len(cfg.vit_global_blocks)
     n_win = cfg.vit_depth - n_global
     want = {"window_attention_rope_packed": 2 * n_win, "long_attention_rope_packed": n_global,
@@ -747,11 +763,7 @@ def train_step_launches(cfg: ModelConfig) -> dict:
             "long_attention_rope_packed_bwd": n_global,
             "long_attention_packed_bwd": cfg.enc_layers}
     if cfg.base_quant != "none":
-        rates = np.linspace(0.0, cfg.vit_drop_path_rate, cfg.vit_depth)
-        fc2_replays = sum(1 for i, r in enumerate(rates)
-                          if r > 0 and i not in cfg.vit_global_blocks)
-        want["int8_gemm_wres"] = (4 * cfg.vit_depth + 3 * n_win + fc2_replays
-                                  + 3 * cfg.text_layers)
+        want["int8_gemm_wres"] = 4 * cfg.vit_depth + 3 * n_win + 3 * cfg.text_layers
     return want
 
 
@@ -780,14 +792,33 @@ def bench_step_launches(cfg: ModelConfig) -> dict:
             "int8_gemm_wres": 4 * cfg.vit_depth + 3 * cfg.text_layers + (n_win - 1) + n_win}
 
 
+# K4's two kernels, by the name the profiler gives them
+K4_KERNELS = ("S8Scaled", "quant_rows_kernel")
+PROFILE_TOP = 15
+
+
+def print_profile(tag: str, prof: dict) -> None:
+    """The top kernels of one profiled step by device time, K4's total and
+    share, and the device's busy share of the step's window."""
+    k4 = [(ms, n) for name, (ms, n) in prof["kernels"].items() if any(s in name for s in K4_KERNELS)]
+    k4_ms = sum(ms for ms, _ in k4)
+    print(f"{tag} profile (one step, torch.profiler): device {prof['device_ms']:.3f} ms in a "
+          f"{prof['window_ms']:.3f} ms window, busy share {prof['busy_share']:.4f}; K4 "
+          f"{k4_ms:.3f} ms in {sum(n for _, n in k4)} launches, {k4_ms / prof['device_ms']:.4f} of "
+          f"device time", flush=True)
+    for name, (ms, n) in list(prof["kernels"].items())[:PROFILE_TOP]:
+        print(f"{tag} profile {ms:10.3f} ms {n:6d}x  {name[:120]}", flush=True)
+
+
 def phase_bench_train(g: torch.Generator):
     """Trainer.fit at bench.py's configuration and adapters, batch 8, one
-    warm-up and three timed steps."""
+    warm-up and three timed steps, then one profiled step."""
     cfg = bench_model_config()
-    launches, losses, times, peak = fit("bench-train", g, cfg, bench_lora_config(), BENCH_BATCH,
-                                        TRAIN_STEPS)
+    launches, losses, times, peak, prof = fit("bench-train", g, cfg, bench_lora_config(),
+                                              BENCH_BATCH, TRAIN_STEPS, profile=True)
     per_step = bench_step_launches(cfg)
     check_launches("bench-train", launches, {k: v * TRAIN_STEPS for k, v in per_step.items()})
+    print_profile("bench-train", prof)
     return launches, times, peak
 
 
@@ -915,7 +946,7 @@ def phase_int8_bwd(g: torch.Generator):
     """One full-width training step at the bench configuration with
     ``base_quant="int8_bwd"`` (dx also an int8 product)."""
     cfg = bench_model_config().replace(base_quant="int8_bwd")
-    launches, _, _, _ = fit("int8_bwd", g, cfg, bench_lora_config(), BENCH_BATCH, 1)
+    launches = fit("int8_bwd", g, cfg, bench_lora_config(), BENCH_BATCH, 1)[0]
     if not launches["int8_gemm_wres"]:
         raise AssertionError("int8_bwd: no int8 GEMM ran")
 
@@ -1051,9 +1082,9 @@ PROBES = (window_cost, dma_floor, packed)
 PROBE_REPS = 20
 PROBE_ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                   "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "table_row",
-                  "passes", "attention_cuda_ms")
+                  "passes", "full_paired_ms", "attention_cuda_ms")
 PROBE_BOUND_SLACK = 1.05  # bound/time above this: the kernel skipped work it claims
-PROBE_FULL_SPREAD = 0.10  # the full rung's time against attention_cuda's
+PROBE_FULL_SPREAD = 0.10  # the full rung's time against attention_cuda's, timed in turns
 
 
 def phase_probes(g: torch.Generator):
@@ -1076,9 +1107,9 @@ def phase_probes(g: torch.Generator):
         if "attention_cuda_ms" in r:
             if not r["equals_attention_cuda"]:
                 failed.append(f"{r['name']}: output differs from attention_cuda's")
-            if abs(r["ms"] / r["attention_cuda_ms"] - 1) > PROBE_FULL_SPREAD:
-                failed.append(f"{r['name']}: {r['ms']:.4f} ms against attention_cuda's "
-                              f"{r['attention_cuda_ms']:.4f} ms")
+            if abs(r["full_paired_ms"] / r["attention_cuda_ms"] - 1) > PROBE_FULL_SPREAD:
+                failed.append(f"{r['name']}: {r['full_paired_ms']:.4f} ms against "
+                              f"attention_cuda's {r['attention_cuda_ms']:.4f} ms, timed in turns")
     for name, c in packed.check(g).items():
         print(f"probes {format_check(name, c)}", flush=True)
         if not c[2]:

@@ -1,5 +1,6 @@
-"""What the port's kernel measurements share: timing, roofline bounds and the
-tolerances of a kernel against its plain version.
+"""What the port's kernel measurements share: timing, roofline bounds, the
+tolerances of a kernel against its plain version, and a profile of one
+training step by kernel.
 
 ``chip_smoke.py`` and the window-kernel probes (``sam3_lora_tpu_torch/probes``)
 both take them from here. Nothing here touches a device at import.
@@ -63,6 +64,21 @@ def median_ms(fn: Callable, reps: int = 20, device: str = "cuda", warmup: bool =
     return timed(fn, reps, device, warmup)[0]
 
 
+def paired_ms(fa: Callable, fb: Callable, reps: int = 20, device: str = "cuda") -> Tuple[float, float]:
+    """The median ms of ``fa()`` and of ``fb()`` timed in turns (a, b, a,
+    b, ...) after one warm-up call of each, so that a drift of the card's
+    clocks or of the host during the runs reaches both alike."""
+    fa()
+    fb()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ta, tb = [], []
+    for _ in range(reps):
+        ta.append(timed(fa, 1, device, warmup=False)[0])
+        tb.append(timed(fb, 1, device, warmup=False)[0])
+    return statistics.median(ta), statistics.median(tb)
+
+
 def roofline(t_ops: float, nbytes: float) -> Tuple[float, str]:
     """(bound_ms, bound_by): the larger of the seconds the operations take at
     the card's peak for their type and the bytes over its memory rate."""
@@ -80,3 +96,49 @@ def attention_work(heads: int, l: int, head_dim: int, backward: bool):
     if backward:
         return 2.5 * ops, 8 * elems * 2 + heads * l * 4
     return ops, 4 * elems * 2
+
+
+def profile_step(step_fn: Callable, steps: int = 1) -> dict:
+    """Profile ``steps`` calls of ``step_fn`` on the card with
+    ``torch.profiler`` (CPU and CUDA activity), synchronized before and after.
+
+    Returns ``kernels``: {kernel name: (device ms, launches)}, the largest
+    first; ``device_ms``, their sum; ``window_ms``, from the first traced
+    event's start to the last one's end; ``busy_share``, the union of the
+    kernels' intervals over the window. Raises if the trace holds no device
+    time (a profiler that cannot see the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step_fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not spans or sum(b - a for a, b, _ in spans) <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    kernels = {}
+    for a, b, name in spans:
+        ms, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (ms + (b - a) / 1e3, n + 1)
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    return {"kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1][0])),
+            "device_ms": sum(ms for ms, _ in kernels.values()),
+            "window_ms": (t1 - t0) / 1e3, "busy_share": covered(spans) / (t1 - t0)}
+
+
+def covered(spans) -> float:
+    """The length of the union of (start, end, ...) intervals sorted by
+    start: the time at least one of them runs."""
+    total, end = 0.0, float("-inf")
+    for a, b, *_ in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total

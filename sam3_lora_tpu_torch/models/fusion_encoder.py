@@ -80,7 +80,9 @@ class EncoderLayer(nn.Module):
             tgt2 = checkpoint(self, self.ffn, tgt2)
         else:
             tgt2 = self.ffn(tgt2)
-        return tgt + self.dropout(tgt2)
+        # held: this mask follows linear2's frozen product, which the
+        # enc_remat replay then need not run again
+        return tgt + self.dropout(tgt2, hold=True)
 
     def ffn(self, x: torch.Tensor) -> torch.Tensor:
         """linear1 -> relu -> dropout -> linear2 (the JAX ``_ffn``)."""

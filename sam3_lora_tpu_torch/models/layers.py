@@ -153,15 +153,19 @@ def trunc_normal_(t: torch.Tensor, std: float, g: torch.Generator) -> None:
     nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s, generator=g)
 
 
-def dropout(x: torch.Tensor, rate: float, spec: Spec, shape=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, spec: Spec, shape=None,
+            hold: bool = False) -> torch.Tensor:
     """Inverted dropout (the JAX ``jnp.where(mask, x / keep, 0)``), with a
     mask of ``shape`` (default: x's) broadcast over x. The caller decides
-    whether it is training."""
+    whether it is training. ``hold`` keeps the mask for the backward past
+    any checkpoint region (``ops/remat.py::held``), for a mask drawn after a
+    frozen product: the region's replay then stops before that product."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
     mask = spec.rng.keep_mask(x.shape if shape is None else shape, keep, x.device)
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    with remat.held() if hold else contextlib.nullcontext():
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dropout(nn.Module):
@@ -171,13 +175,15 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate, self.spec = rate, spec
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dropout(x, self.rate, self.spec) if self.training else x
+    def forward(self, x: torch.Tensor, hold: bool = False) -> torch.Tensor:
+        return dropout(x, self.rate, self.spec, hold=hold) if self.training else x
 
 
 class DropPath(nn.Module):
     """Stochastic depth per sample (timm DropPath): one keep draw per row of
-    the leading axis, in training mode."""
+    the leading axis, in training mode. The mask follows its branch's last
+    frozen product (proj's, fc2's), so it is held (``dropout``): a ViT
+    block's replay stops before fc2's product, as XLA drops it."""
 
     def __init__(self, rate: float, spec: Spec):
         super().__init__()
@@ -186,7 +192,8 @@ class DropPath(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
-        return dropout(x, self.rate, self.spec, shape=(x.shape[0],) + (1,) * (x.ndim - 1))
+        return dropout(x, self.rate, self.spec, shape=(x.shape[0],) + (1,) * (x.ndim - 1),
+                       hold=True)
 
 
 def checkpoint(module: nn.Module, fn, *args, keep: Sequence[str] = ()):

@@ -3,10 +3,15 @@ wrappers, launch counters and plain PyTorch versions, and the routing flags
 of the JAX package's ``ops/gemm_int8.py``.
 
 * ``int8_gemm_wres`` (K4): y = (int8(x / s_x) . W_q^T) * s_x * s_w, with the
-  per-row dynamic activation scale s_x = max(amax_row / 127, 1e-12).
+  per-row dynamic activation scale s_x = max(amax_row / 127, 1e-12). On the
+  card, two launches: the row quantization (``quant_rows``) and the s8
+  mainloop of ``csrc/gemm_sm90.cuh`` (``int8_dot``, then the row and column
+  scales).
 * ``int8_lora_gemm_wres`` (K5): K4 + scale * ((x A^T) B^T), the adapter
   products in the compute dtype with fp32 accumulation.
 * ``bf16_gemm_wres_nt`` (K6): dx = dy . dequant(W_q, s_w), fp32 accumulation.
+  On the card, two launches: ``dequantize_t`` (W_deq^T, (K, N) bf16) and the
+  bf16 mainloop of ``csrc/gemm_sm90.cuh``.
 
 The port's weight is W_q (N, K) int8, (out, in) as in ``nn.Linear``, with a
 per-output-channel fp32 scale s_w (N,); the adapters are ``lora_a`` (r, K)
@@ -46,6 +51,7 @@ GEMM_LORA_FUSED = os.environ.get("SAM3_GEMM_LORA_FUSED", "0") == "1"
 GEMM_BWD_KERNEL = os.environ.get("SAM3_GEMM_BWD_KERNEL", "0") == "1"
 K_ALIGN = 32    # the kernels' contraction step
 MAX_RANK = 64   # K5's largest adapter rank
+MAX_K = 133143  # K * 127**2 < 2**31: K4's int32 sums cannot overflow
 
 
 def supported_nt(m: int, k: int, n: int) -> bool:
@@ -58,12 +64,12 @@ def supported_nt(m: int, k: int, n: int) -> bool:
 def _library() -> ctypes.CDLL:
     lib = _cuda.library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sam3_int8_gemm.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-    lib.sam3_int8_gemm.restype = i32
-    lib.sam3_int8_lora_gemm.argtypes = [ptr] * 6 + [i32] * 4 + [ctypes.c_float, ptr]
-    lib.sam3_int8_lora_gemm.restype = i32
-    lib.sam3_bf16_gemm_nt.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-    lib.sam3_bf16_gemm_nt.restype = i32
+    for fn, args in ((lib.sam3_quant_rows, [ptr] * 3 + [i32] * 2 + [ptr]),
+                     (lib.sam3_int8_gemm, [ptr] * 6 + [i32] * 3 + [ptr]),
+                     (lib.sam3_int8_lora_gemm, [ptr] * 6 + [i32] * 4 + [ctypes.c_float, ptr]),
+                     (lib.sam3_dequant_t, [ptr] * 3 + [i32] * 2 + [ptr]),
+                     (lib.sam3_bf16_gemm_nt, [ptr] * 5 + [i32] * 3 + [ptr])):
+        fn.argtypes, fn.restype = args, i32
     return lib
 
 
@@ -91,6 +97,12 @@ def int8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 def dequantize(wq: torch.Tensor, ws: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(N, K) int8, (N,) fp32 -> (N, K) in ``dtype``: fp32 product, one rounding."""
     return (wq.float() * ws[:, None]).to(dtype)
+
+
+def dequantize_t(wq: torch.Tensor, ws: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``dequantize`` transposed, contiguous: (K, N) in ``dtype``, the JAX
+    package's (K, N) ``w_deq`` and K6's second operand."""
+    return dequantize(wq, ws, dtype).T.contiguous()
 
 
 def int8_gemm_wres_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
@@ -134,6 +146,31 @@ def _check_k(k: int) -> None:
         raise ValueError(f"the int8 GEMM kernels need K % {K_ALIGN} == 0, got K = {k}")
 
 
+def check_gemm_shape(m: int, k: int, n: int) -> None:
+    """Raise unless K4 takes x (M, K) against W_q (N, K): K % 32 == 0 (so the
+    int8 and bf16 rows the TMA loads are 16-byte aligned), K small enough
+    for exact int32 sums, N % 8 == 0 (the bf16 output rows the TMA stores),
+    M >= 0."""
+    _check_k(k)
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"K4 needs 0 < K <= {MAX_K} (exact int32 sums), got K = {k}")
+    if n < 8 or n % 8:
+        raise ValueError(f"K4 needs N % 8 == 0 and N >= 8, got N = {n}")
+    if m < 0:
+        raise ValueError(f"K4 needs M >= 0, got M = {m}")
+
+
+def check_nt_shape(m: int, n: int, k: int) -> None:
+    """Raise unless K6 takes dy (M, N) against W_q (N, K): K % 32 == 0 and
+    N % 32 == 0 (the contraction N runs along 16-byte aligned bf16 rows of
+    dy and of W_deq^T), M >= 0."""
+    _check_k(k)
+    if n % K_ALIGN or n < 1:
+        raise ValueError(f"K6 needs N % {K_ALIGN} == 0, got N = {n}")
+    if m < 0:
+        raise ValueError(f"K6 needs M >= 0, got M = {m}")
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -143,19 +180,37 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} launch failed: cudaError {err}")
 
 
+def quant_rows_cuda(x: torch.Tensor):
+    """K4's first launch: (M, K) bf16 x -> (int8 (M, K), fp32 (M,)), the
+    bits of ``quant_rows`` (its scales without the keepdim)."""
+    m, k = x.shape
+    _check_k(k)
+    _check("x", x, torch.bfloat16, (m, k))
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    if m:
+        _raise_on(_library().sam3_quant_rows(x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, k,
+                                             _stream(x)), "sam3_quant_rows")
+    return xq, sx
+
+
 def int8_gemm_wres_cuda(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on (M, K) bf16 x, (N, K) int8 wq, (N,) fp32 ws."""
+    """Launch K4 on (M, K) bf16 x, (N, K) int8 wq, (N,) fp32 ws: the row
+    quantization into scratch (xq, s_x), then the s8 mainloop with the
+    scaling epilogue."""
     m, k = x.shape
     n = wq.shape[0]
-    _check_k(k)
+    check_gemm_shape(m, k, n)
     _check("x", x, torch.bfloat16, (m, k))
     _check("wq", wq, torch.int8, (n, k))
     _check("ws", ws, torch.float32, (n,))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m:
-        _raise_on(_library().sam3_int8_gemm(x.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                                            out.data_ptr(), m, n, k, _stream(x)),
-                  "sam3_int8_gemm")
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+        _raise_on(_library().sam3_int8_gemm(x.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                                            wq.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
+                                            _stream(x)), "sam3_int8_gemm")
     return out
 
 
@@ -179,21 +234,35 @@ def int8_lora_gemm_wres_cuda(x, wq, ws, a, b, scale: float) -> torch.Tensor:
     return out
 
 
+def dequantize_t_cuda(wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """K6's first launch: (N, K) int8 wq, (N,) fp32 ws -> (K, N) bf16, the
+    bits of ``dequantize_t``."""
+    n, k = wq.shape
+    check_nt_shape(0, n, k)
+    _check("wq", wq, torch.int8, (n, k))
+    _check("ws", ws, torch.float32, (n,))
+    out = torch.empty((k, n), dtype=torch.bfloat16, device=wq.device)
+    _raise_on(_library().sam3_dequant_t(wq.data_ptr(), ws.data_ptr(), out.data_ptr(), n, k,
+                                        _stream(wq)), "sam3_dequant_t")
+    return out
+
+
 def bf16_gemm_wres_nt_cuda(dy: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """Launch K6 on (M, N) bf16 dy, (N, K) int8 wq, (N,) fp32 ws -> (M, K)."""
+    """Launch K6 on (M, N) bf16 dy, (N, K) int8 wq, (N,) fp32 ws -> (M, K):
+    the dequantize-transpose into scratch (W_deq^T), then the bf16
+    mainloop."""
     m, n = dy.shape
     k = wq.shape[1]
-    _check_k(k)
-    if n % K_ALIGN:
-        raise ValueError(f"K6 needs N % {K_ALIGN} == 0, got N = {n}")
+    check_nt_shape(m, n, k)
     _check("dy", dy, torch.bfloat16, (m, n))
     _check("wq", wq, torch.int8, (n, k))
     _check("ws", ws, torch.float32, (n,))
     out = torch.empty((m, k), dtype=torch.bfloat16, device=dy.device)
     if m:
+        wdt = torch.empty((k, n), dtype=torch.bfloat16, device=dy.device)
         _raise_on(_library().sam3_bf16_gemm_nt(dy.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-                                               out.data_ptr(), m, n, k, _stream(dy)),
-                  "sam3_bf16_gemm_nt")
+                                               wdt.data_ptr(), out.data_ptr(), m, n, k,
+                                               _stream(dy)), "sam3_bf16_gemm_nt")
     return out
 
 

@@ -43,7 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from . import gemm_int8
+from . import gemm_int8, remat
 from .gemm_int8 import dequantize, quant_rows
 
 
@@ -99,19 +99,22 @@ def _dx(dy: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, bwd_int8: bool = F
 
 
 class _Int8Matmul(torch.autograd.Function):
-    """y = x . W^T with W quantized per call (``int8_matmul``)."""
+    """y = x . W^T with W quantized per call (``int8_matmul``).
+
+    The frozen w is held on ``ctx`` and quantized again in the backward (the
+    same bits): a saved quantization would be packed after the product, so
+    a checkpoint region that ends here would replay the product, and the
+    quantization, to reach it (``ops/remat.py``)."""
 
     @staticmethod
     def forward(ctx, x, w, bwd_int8):
-        wq, ws = quantize_weight(w.detach())
-        ctx.save_for_backward(wq, ws)
+        ctx.w = w.detach()
         ctx.bwd_int8 = bwd_int8
-        return _apply(x, wq, ws)
+        return _apply(x, *quantize_weight(ctx.w))
 
     @staticmethod
     def backward(ctx, dy):
-        wq, ws = ctx.saved_tensors
-        return _dx(dy, wq, ws, ctx.bwd_int8), None, None
+        return _dx(dy, *quantize_weight(ctx.w), ctx.bwd_int8), None, None
 
 
 class _Int8MatmulPrequant(torch.autograd.Function):
@@ -134,22 +137,25 @@ class _Int8MatmulPrequant(torch.autograd.Function):
 
 
 class _Int8LoRAMatmulPrequant(torch.autograd.Function):
-    """y = x . dequant(wq, ws)^T + scale * (x la^T) lb^T in one product."""
+    """y = x . dequant(wq, ws)^T + scale * (x la^T) lb^T in one product.
+
+    Saves nothing itself: x, la and lb were saved before the product by
+    ``remat.SaveFirst`` (``token``), the frozen wq, ws are held on ``ctx``,
+    so a checkpoint region that ends here replays no product."""
 
     @staticmethod
-    def forward(ctx, x, wq, ws, la, lb, scale):
+    def forward(ctx, x, wq, ws, la, lb, scale, token):
         dt = x.dtype
         lead = x.shape[:-1]
         y = gemm_int8.int8_lora_gemm_wres(x.reshape(-1, x.shape[-1]), wq, ws,
                                           la.detach().to(dt), lb.detach().to(dt), scale)
-        ctx.save_for_backward(x, wq, ws, la, lb)
-        ctx.scale = scale
+        ctx.wq, ctx.ws, ctx.token, ctx.scale = wq, ws, token, scale
         return y.reshape(*lead, wq.shape[0])
 
     @staticmethod
     def backward(ctx, dy):
-        x, wq, ws, la, lb = ctx.saved_tensors
-        scale = ctx.scale
+        x, la, lb = remat.saved(ctx.token)
+        wq, ws, scale = ctx.wq, ctx.ws, ctx.scale
         dt = dy.dtype
         n, k = wq.shape
         dyf = dy.reshape(-1, n)
@@ -163,7 +169,7 @@ class _Int8LoRAMatmulPrequant(torch.autograd.Function):
         da = scale * _mm(dyb.to(dt).T, xf)                         # (r, K) = (dy lb)^T x
         xa = _mm(xf, la_c.T).to(dt)                                # (M, r) = x la^T
         db = scale * _mm(dyf.T, xa)                                # (N, r) = dy^T (x la^T)
-        return dx, None, None, da, db, None
+        return dx, None, None, da, db, None, None
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, bwd_int8: bool = False) -> torch.Tensor:
@@ -184,7 +190,10 @@ def int8_lora_matmul_prequant(x, wq, ws, la, lb, scale: float) -> torch.Tensor:
     """``int8_matmul_prequant`` plus the adapter branch scale * (x la^T) lb^T,
     fused into one product (K5 on the card); la (r, K) and lb (N, r) are
     the fp32 adapters, used in x's dtype. Returns (..., N) in x's dtype."""
-    return _Int8LoRAMatmulPrequant.apply(x, wq, ws, la, lb, float(scale))
+    token = None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, la, lb)):
+        token = remat.SaveFirst.apply(x, la, lb)
+    return _Int8LoRAMatmulPrequant.apply(x, wq, ws, la, lb, float(scale), token)
 
 
 def prequantize_model(model: nn.Module, min_dim: int = 512) -> int:

@@ -20,12 +20,26 @@ from inside ``autograd.Function``s, so the port marks them itself:
   their backward nodes, which take the kept output and log-sum-exp.
 
 A kept tensor lives until the region's backward frees the replay's closure.
+
+A replay runs until the region's last saved tensor is recomputed. Two kinds
+of saved tensors would pull it through work whose value no gradient reads:
+
+* a dropout or drop-path mask drawn after a frozen product: ``held()`` saves
+  the tensors of the operators inside it as they are, outside the region's
+  saving, so the replay need not redraw the mask (a mask is one byte an
+  element, or one per sample for drop-path);
+* a tensor that an ``autograd.Function`` saves: torch packs it after the
+  Function's forward has run, so a region that ends in the Function replays
+  its product. ``SaveFirst`` saves such tensors before the product instead
+  (``ops/quant.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 from typing import Callable, Iterable, List
+
+import torch
 
 _TAGS: List[str] = []
 _REGIONS: List["Region"] = []
@@ -81,3 +95,38 @@ def kept(compute: Callable):
     out = compute()
     region.kept.append(_detached(out))
     return out
+
+
+def _same(t):
+    return t
+
+
+@contextlib.contextmanager
+def held():
+    """Inside, operators save their tensors for the backward as they are, past
+    any checkpoint region: the region's replay does not recompute them."""
+    with torch.autograd.graph.saved_tensors_hooks(_same, _same):
+        yield
+
+
+class SaveFirst(torch.autograd.Function):
+    """Save tensors before a product that needs them in its backward: apply
+    to them before the product, pass the token it returns to the product's
+    Function, which reads them back in its backward through ``saved(token)``.
+    The token is an empty tensor; this Function's own backward returns no
+    gradient (the product's Function returns those of the saved tensors)."""
+
+    @staticmethod
+    def forward(ctx, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.n = len(tensors)
+        return tensors[0].new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        return (None,) * ctx.n
+
+
+def saved(token: torch.Tensor):
+    """The tensors ``SaveFirst`` saved for ``token``."""
+    return token.grad_fn.saved_tensors

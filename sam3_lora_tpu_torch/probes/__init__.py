@@ -123,7 +123,8 @@ def format_row(r: Dict) -> str:
     bound = "not measured" if r["bound_ms"] is None else f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
     extra = ""
     if "attention_cuda_ms" in r:
-        extra = (f" | attention_cuda {r['attention_cuda_ms']:.4f} ms, "
+        extra = (f" | in turns: rung {r['full_paired_ms']:.4f} ms, attention_cuda "
+                 f"{r['attention_cuda_ms']:.4f} ms, "
                  f"{'bit for bit' if r['equals_attention_cuda'] else 'DIFFERS'}")
     err = format_check("", (r["max_abs_err"], r["limit"], r["ok"])).strip()
     return (f"{r['name']:32s} {ms:9.4f} ms  {'  '.join(rates)} | {err} | "

@@ -1,0 +1,170 @@
+"""A/B of checkouts of the port on one card: the int8 tier's K4 and K6
+against their PyTorch yardsticks at fc1, and three training phases of each
+checkout, each with one profiled step.
+
+    python sam3_lora_tpu_torch/probes/step_ab.py --trees _proof/parent . . _proof/parent --out ab.jsonl
+
+Each tree runs in a process of its own (the checkouts share the package's
+name), builds its own kernels from its own sources and trains with its own
+``Trainer`` on ``chip_smoke.py``'s samples; the profile is this checkout's
+``measure.profile_step`` whatever the tree. Per run it prints, and appends to
+``--out`` as one JSON line:
+
+* ``gemm``: at fc1 (K 1024, N 4736) with M = 20736 (batch 4) and 41472
+  (bench.py's batch 8), the median CUDA-event ms of the tree's K4 and K6
+  wrappers, ``torch._int_mm`` on the same int8 operands, bf16
+  ``torch.matmul`` of x against the dequantized weight and
+  ``torch.matmul(dy, w_deq)``; K4 held bit for bit to its plain version;
+* ``train``, ``train_int8``, ``bench``: chip_smoke's train phase at batch 4
+  (bf16; the int8 tier with ``GEMM_BWD_KERNEL`` on) and bench-train at batch
+  8 (``bench_model_config``, ``bench_lora_config``): four steps (the first
+  is the warm-up) and the profile of a fifth: device ms by kernel, K4's and
+  K6's kernels' sums, the busy share.
+
+Seeds are fixed, so every tree sees the same operands and samples.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# K4's and K6's kernels by the name the profiler gives them: the TMA/wgmma
+# mainloop and its first pass, or the mma.sync kernels of the first design
+K4_KERNELS = ("S8Scaled", "quant_rows_kernel", "int8_gemm_kernel<false>")
+K6_KERNELS = ("Bf16Plain", "dequant_t_kernel", "bf16_gemm_nt_kernel")
+STEPS = 4
+TOP = 15
+
+
+def _profile_step():
+    """This checkout's ``measure.profile_step``, loaded by path: the tree
+    under test may predate it."""
+    spec = importlib.util.spec_from_file_location("_ab_measure", os.path.join(HERE, "..", "measure.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.profile_step
+
+
+def gemm_rows(torch, gemm_int8, quant, median_ms):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    k, n = 1024, 4736
+    for m in (20736, 41472):
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        wq, ws = quant.quantize_weight(torch.randn(n, k, generator=g, device="cuda") / k ** 0.5)
+        dy = torch.randn(m, n, generator=g, device="cuda").to(torch.bfloat16)
+        w_deq = gemm_int8.dequantize(wq, ws, torch.bfloat16)
+        xq = gemm_int8.quant_rows(x)[0]
+        exact = torch.equal(gemm_int8.int8_gemm_wres(x, wq, ws), gemm_int8.int8_gemm_wres_plain(x, wq, ws))
+        rows.append({"layer": "fc1", "M": m, "K": k, "N": n, "k4_bit_exact": exact,
+                     "k4_ms": median_ms(lambda: gemm_int8.int8_gemm_wres(x, wq, ws)),
+                     "int_mm_ms": median_ms(lambda: torch._int_mm(xq, wq.t())),
+                     "bf16_mm_ms": median_ms(lambda: torch.matmul(x, w_deq.t())),
+                     "k6_ms": median_ms(lambda: gemm_int8.bf16_gemm_wres_nt(dy, wq, ws)),
+                     "dy_w_deq_ms": median_ms(lambda: torch.matmul(dy, w_deq))})
+        print(json.dumps(rows[-1]), flush=True)
+        del x, wq, ws, dy, w_deq, xq
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch: int) -> dict:
+    """STEPS training steps of the tree's Trainer at ``cfg`` and ``batch``,
+    adapters drawn live, then a profiled step."""
+    from sam3_lora_tpu_torch.config import TrainConfig
+    from sam3_lora_tpu_torch.models.layers import LoRALinear
+    from sam3_lora_tpu_torch.train.data import DataLoader
+    from sam3_lora_tpu_torch.train.prefetch import batch_to_device
+    from sam3_lora_tpu_torch.train.trainer import Trainer
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = TrainConfig(batch_size=batch, num_epochs=1, warmup_steps=0, logging_steps=1,
+                           num_workers=2, seed=0, output_dir=out_dir)
+        trainer = Trainer(cfg, lora, tcfg, device="cuda")
+        loader = DataLoader(chip_smoke.SyntheticSamples(cfg, batch * STEPS, 0), batch,
+                            shuffle=False, num_workers=2)
+        trainer.setup(steps_per_epoch=len(loader))
+        with torch.no_grad():
+            for m in trainer.model.modules():
+                if isinstance(m, LoRALinear) and m.lora_b is not None:
+                    m.lora_b.normal_(0.0, 0.02, generator=g)
+        torch.cuda.reset_peak_memory_stats()
+        trainer.fit(loader)
+        with open(os.path.join(out_dir, "train_stats.json")) as f:
+            times = [json.loads(line)["step_time_s"] for line in f]
+        peak = torch.cuda.max_memory_allocated()
+        first = batch_to_device(next(iter(loader.epoch(0))), "cuda")
+        prof = profile_step(lambda: trainer.train_step(first))
+    del trainer
+    torch.cuda.empty_cache()
+
+    def total(names):
+        hits = [(ms, n) for name, (ms, n) in prof["kernels"].items() if any(s in name for s in names)]
+        return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+    (k4_ms, k4_n), (k6_ms, k6_n) = total(K4_KERNELS), total(K6_KERNELS)
+    res = {"step_s": times, "peak_gib": peak / 2 ** 30, "device_ms": prof["device_ms"],
+           "window_ms": prof["window_ms"], "busy_share": prof["busy_share"],
+           "k4_ms": k4_ms, "k4_launches": k4_n, "k6_ms": k6_ms, "k6_launches": k6_n,
+           "top": [(name[:120], ms, n) for name, (ms, n) in list(prof["kernels"].items())[:TOP]]}
+    print(json.dumps({k: v for k, v in res.items() if k != "top"}), flush=True)
+    return res
+
+
+def worker(tree: str, out: str) -> None:
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    import chip_smoke
+    from sam3_lora_tpu_torch.config import bench_lora_config, bench_model_config
+    from sam3_lora_tpu_torch.measure import median_ms
+    from sam3_lora_tpu_torch.ops import _cuda, gemm_int8, quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    _cuda.build()
+    res = {"tree": tree, "device": smi, "gemm": gemm_rows(torch, gemm_int8, quant, median_ms)}
+    profile_step = _profile_step()
+    for phase, cfg, lora, batch in (
+            ("train", chip_smoke.model_config(False), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
+            ("train_int8", chip_smoke.model_config(True), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
+            ("bench", bench_model_config(), bench_lora_config(), chip_smoke.BENCH_BATCH)):
+        gemm_int8.GEMM_BWD_KERNEL = phase == "train_int8"  # as chip_smoke's train-int8
+        res[phase] = profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch)
+    gemm_int8.GEMM_BWD_KERNEL = False
+    line = json.dumps(res)
+    print(line, flush=True)
+    with open(out, "a") as f:
+        f.write(line + "\n")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", help="checkouts to run, in this order")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--out", default="step_ab.jsonl", help="JSON lines, appended")
+    args = ap.parse_args()
+    out = os.path.abspath(args.out)
+    if args.worker:
+        worker(args.worker, out)
+        return
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    for tree in args.trees:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, "--out", out],
+                       check=True)
+
+
+if __name__ == "__main__":
+    main()

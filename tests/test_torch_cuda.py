@@ -3,8 +3,10 @@ and the backward kernels against their plain PyTorch versions at small and
 ragged shapes, strided operands, the autograd Functions (outputs carry a
 ``grad_fn`` and their backward launches the kernel), and the wrapper's
 input checks; the int8 tier's K4/K5/K6 (``ops/gemm_int8.py``) against their
-plain versions at the model's K x N, their counters, the routing of the
-autograd Functions and the wrapper's checks. These need an NVIDIA GPU with
+plain versions at the model's K x N and at every shape of
+``chip_smoke.gemm_cases()``, K4's and K6's first passes (the row
+quantization, the dequantize-transpose) against theirs, the counters, the
+routing of the autograd Functions and the wrappers' checks. These need an NVIDIA GPU with
 nvcc and skip elsewhere; on a machine with a GPU run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance: attention max |kernel - plain| <= 2e-2 * max |plain|, as in
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from sam3_lora_tpu_torch import probes
 from sam3_lora_tpu_torch.ops import (
     attention_kernel, gemm_int8, probe_kernels, quant, window_attention, window_qkv,
@@ -308,6 +311,75 @@ def test_k6_matches_plain(gen, m, k, n):
     assert gemm_int8.bf16_gemm_wres_nt.launches == before + 1
     assert out.shape == (m, k)
     _assert_gemm_close(out, gemm_int8.bf16_gemm_wres_nt_plain(dy, wq, ws))
+
+
+GEMM_CASES = chip_smoke.gemm_cases()
+GEMM_IDS = [f"{layer}-{path}-M{m}" for layer, path, m, _, _ in GEMM_CASES]
+
+
+@pytest.mark.parametrize("layer,path,m,k,n", GEMM_CASES, ids=GEMM_IDS)
+def test_k4_bit_exact_at_main_path_shapes(gen, layer, path, m, k, n):
+    """Every int8 GEMM of the main paths (serving, training, bench.py's batch
+    8, the text encoder, a ragged M): K4 bit for bit."""
+    x, wq, ws, _, _ = _int8_operands(gen, m, k, n)
+    out = gemm_int8.int8_gemm_wres(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gemm_int8.int8_gemm_wres_plain(x, wq, ws))
+
+
+@pytest.mark.parametrize("layer,path,m,k,n", [c for c in GEMM_CASES if c[0] in ("fc1", "fc2")],
+                         ids=[i for i, c in zip(GEMM_IDS, GEMM_CASES) if c[0] in ("fc1", "fc2")])
+def test_k6_within_bound_at_main_path_shapes(gen, layer, path, m, k, n):
+    """K6 at fc1's and fc2's dx shapes of the main paths."""
+    _, wq, ws, _, _ = _int8_operands(gen, 1, k, n)
+    dy = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    out = gemm_int8.bf16_gemm_wres_nt(dy, wq, ws)
+    torch.cuda.synchronize()
+    _assert_gemm_close(out, gemm_int8.bf16_gemm_wres_nt_plain(dy, wq, ws))
+
+
+@pytest.mark.parametrize("m,k", [(1, 1024), (37, 4096), (1000, 1024), (5184, 4736)])
+def test_quant_rows_kernel_equals_plain(gen, m, k):
+    """K4's first pass: the int8 rows and their scales bit for bit, a zero
+    row and a row of .5 ties (round half to even) included."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    x[0] = 0.0
+    if m > 1:
+        x[1] = 0.0
+        x[1, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, 1.5, -0.5])
+    xq, sx = gemm_int8.quant_rows_cuda(x)
+    torch.cuda.synchronize()
+    ref_q, ref_s = gemm_int8.quant_rows(x)
+    assert torch.equal(xq, ref_q) and torch.equal(sx, ref_s[:, 0])
+
+
+@pytest.mark.parametrize("k,n", VIT_KN + TEXT_KN + [(160, 96)])
+def test_dequantize_t_kernel_equals_plain(gen, k, n):
+    """K6's first pass: W_deq^T bit for bit, ragged tiles included."""
+    _, wq, ws, _, _ = _int8_operands(gen, 1, k, n)
+    out = gemm_int8.dequantize_t_cuda(wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gemm_int8.dequantize_t(wq, ws, torch.bfloat16))
+
+
+def test_k4_k6_wrappers_raise_on_refused_shapes(gen):
+    """What the mainloops refuse raises before any launch: K4 at K % 32 != 0
+    or N % 8 != 0, K6 at N % 32 != 0 or K % 32 != 0, each pre-pass alike."""
+    x, wq, ws, _, _ = _int8_operands(gen, 64, 1024, 1024)
+    k4, k6 = gemm_int8.int8_gemm_wres.launches, gemm_int8.bf16_gemm_wres_nt.launches
+    with pytest.raises(ValueError, match="K % 32"):
+        gemm_int8.int8_gemm_wres(x[:, :1008].contiguous(), wq[:, :1008].contiguous(), ws)
+    with pytest.raises(ValueError, match="N % 8"):
+        gemm_int8.int8_gemm_wres(x, wq[:1004].contiguous(), ws[:1004].contiguous())
+    with pytest.raises(ValueError, match="K % 32"):
+        gemm_int8.quant_rows_cuda(x[:, :1000].contiguous())
+    with pytest.raises(ValueError, match="N % 32"):
+        gemm_int8.bf16_gemm_wres_nt(x[:, :1008].contiguous(), wq[:1008], ws[:1008])
+    with pytest.raises(ValueError, match="N % 32"):
+        gemm_int8.dequantize_t_cuda(wq[:1000].contiguous(), ws[:1000].contiguous())
+    with pytest.raises(ValueError, match="K % 32"):
+        gemm_int8.dequantize_t_cuda(wq[:, :1000].contiguous(), ws)
+    assert (gemm_int8.int8_gemm_wres.launches, gemm_int8.bf16_gemm_wres_nt.launches) == (k4, k6)
 
 
 @pytest.mark.parametrize("bwd_kernel", [False, True])

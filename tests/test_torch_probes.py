@@ -248,3 +248,31 @@ def test_wrappers_refuse_other_devices():
         pk.stage(q, q, q, "full", SCALE)
     with pytest.raises(ValueError, match="no kernel"):
         pk.op_rate(torch.zeros(4, pk.OP_COLS, device="meta"), "add_f32", 1)
+
+
+# ---- the step profile (measure.profile_step), read by chip_smoke's
+# bench-train phase and probes/step_ab.py
+
+def test_covered_is_the_union_of_intervals():
+    from sam3_lora_tpu_torch.measure import covered
+
+    assert covered([]) == 0.0
+    assert covered([(0.0, 2.0, "a"), (1.0, 3.0, "b"), (5.0, 6.0, "c")]) == 4.0
+    assert covered([(0.0, 10.0, "a"), (2.0, 3.0, "b"), (4.0, 12.0, "c")]) == 12.0
+
+
+def test_profile_step_refuses_a_trace_without_device_time():
+    """On a host without a card the trace holds no kernel: the profile
+    fails rather than report a device share of 0."""
+    from sam3_lora_tpu_torch.measure import profile_step
+
+    with pytest.raises(RuntimeError, match="no device time"):
+        profile_step(lambda: torch.ones(8, 8) @ torch.ones(8, 8))
+
+
+def test_paired_ms_times_both_in_turns():
+    from sam3_lora_tpu_torch.measure import paired_ms
+
+    calls = []
+    ta, tb = paired_ms(lambda: calls.append("a"), lambda: calls.append("b"), 3, "cpu")
+    assert calls == ["a", "b"] * 4 and ta >= 0.0 and tb >= 0.0

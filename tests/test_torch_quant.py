@@ -180,12 +180,25 @@ def test_k4_plain_matches_jax_pallas_kernel(interpret, m, k, n, dtype):
     w = jax.random.normal(jax.random.fold_in(key, 1), (k, n), jnp.float32)
     jwq, jws = jax.jit(jquant.quantize_weight)(w)
     ref = jgemm.int8_gemm_wres(x, jwq, jws, out_dtype=JNP[dtype])
-    got = gemm_int8.int8_gemm_wres(torch.tensor(np.asarray(x, np.float32)).to(TORCH[dtype]),
-                                   torch.from_numpy(np.asarray(jwq).T.copy()),
-                                   torch.tensor(np.asarray(jws)[0]))
+    xt = torch.tensor(np.asarray(x, np.float32)).to(TORCH[dtype])
+    wq, ws = torch.from_numpy(np.asarray(jwq).T.copy()), torch.tensor(np.asarray(jws)[0])
+    got = gemm_int8.int8_gemm_wres(xt, wq, ws)
     err = float(np.abs(_np(got) - _np(ref)).max())
     scale = float(np.abs(_np(ref)).max()) + 1e-6
     assert err / scale < (3e-3 if dtype == "bfloat16" else 1e-6)
+    # the card's decomposition, step by step, against the JAX expressions op
+    # by op (the XLA path of ``_int8_apply``): quant_rows (the first launch),
+    # the exact int32 sums (the mainloop), the row then column scale (its
+    # epilogue), bit for bit
+    jxq, jxs = jquant._quant_lastdim(x)
+    jacc = jquant._int8_dot(jxq, jwq)
+    xq, xs = gemm_int8.quant_rows(xt)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jxq))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
+    acc = gemm_int8.int8_dot(xq, wq)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc.astype(jnp.float32)))
+    jy = (jacc.astype(jnp.float32) * jxs * jws).astype(JNP[dtype])
+    np.testing.assert_array_equal(_np(got), _np(jy))
 
 
 def test_k4_plain_zero_rows_quantize_to_zero():
@@ -220,10 +233,48 @@ def test_k6_plain_matches_jax_pallas_kernel(interpret):
     jwq, jws = jax.jit(jquant.quantize_weight)(w)
     w_deq = jwq.astype(jnp.float32) * jws
     ref = jgemm.bf16_gemm_wres_nt(dy, w_deq, out_dtype=jnp.float32)
-    got = gemm_int8.bf16_gemm_wres_nt(torch.tensor(np.asarray(dy)),
-                                      torch.from_numpy(np.asarray(jwq).T.copy()),
-                                      torch.tensor(np.asarray(jws)[0]))
+    wq, ws = torch.from_numpy(np.asarray(jwq).T.copy()), torch.tensor(np.asarray(jws)[0])
+    got = gemm_int8.bf16_gemm_wres_nt(torch.tensor(np.asarray(dy)), wq, ws)
     np.testing.assert_allclose(_np(got), _np(ref), atol=1e-5)
+    # the card's first launch, W_deq^T (K, N), is the JAX (K, N) w_deq bit
+    # for bit, in both dtypes (``_int8_bwd``'s expression)
+    for dtype in ("float32", "bfloat16"):
+        np.testing.assert_array_equal(_np(gemm_int8.dequantize_t(wq, ws, TORCH[dtype])),
+                                      _np(w_deq.astype(JNP[dtype])))
+
+
+def test_kernel_shape_checks_admit_every_main_path_shape():
+    """K4's and K6's wrappers admit every int8 GEMM of chip_smoke's main
+    paths (serving, training, bench.py's batch, the text encoder, a ragged M)."""
+    import chip_smoke
+
+    for layer, path, m, k, n in chip_smoke.gemm_cases():
+        gemm_int8.check_gemm_shape(m, k, n)
+        gemm_int8.check_nt_shape(m, n, k)
+
+
+@pytest.mark.parametrize("m,k,n,match", [
+    (64, 1000, 1024, "K % 32"),     # int8 rows the TMA cannot take
+    (64, 1008, 1024, "K % 32"),     # 16-byte rows, but not the 32-byte K step
+    (64, 0, 1024, "0 < K"),
+    (64, 133152, 1024, "exact int32"),
+    (-1, 1024, 1024, "M >= 0"),
+    (64, 1024, 1004, "N % 8"),      # bf16 output rows the TMA store cannot take
+    (64, 1024, 0, "N % 8"),
+])
+def test_k4_shape_check_refuses(m, k, n, match):
+    with pytest.raises(ValueError, match=match):
+        gemm_int8.check_gemm_shape(m, k, n)
+
+
+@pytest.mark.parametrize("m,n,k,match", [
+    (64, 1000, 1024, "N % 32"),     # dy's and W_deq^T's bf16 rows
+    (64, 4736, 1000, "K % 32"),
+    (-1, 4736, 1024, "M >= 0"),
+])
+def test_k6_shape_check_refuses(m, n, k, match):
+    with pytest.raises(ValueError, match=match):
+        gemm_int8.check_nt_shape(m, n, k)
 
 
 def test_width_gate_of_the_dx_kernel():

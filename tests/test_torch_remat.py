@@ -10,8 +10,10 @@ CPU:
   keeps the attention output (``wo_block_mid``/``block_mid`` in the ViT,
   ``enc_remat`` in the encoder) replays no attention forward, and that
   ``full``/``windows_only`` do;
-* the MLP region of the split policies (``block_mid``, ``wo_block_mid``)
-  replays fc1's frozen product and not fc2's, in the float and int8 tiers;
+* no replay runs fc2's frozen product (nor the encoder's linear2 under
+  ``enc_remat``), under every policy with every dropout above 0, in the
+  float tier and the int8 tier's three Functions (prequantized, quantized
+  per call, fused with the adapters);
 * at ``bench.py``'s settings and at the ``windows_only`` default of
   chip_smoke's train-int8, a training step computes each kernel as often as
   ``chip_smoke.bench_step_launches`` / ``train_step_launches`` expect on the
@@ -23,6 +25,7 @@ _FORCE_INTERPRET``), through the entries' plain versions.
 """
 
 import collections
+import contextlib
 
 import pytest
 import torch
@@ -33,7 +36,7 @@ from sam3_lora_tpu_torch.models import build_sam3_image_model, init_model
 from sam3_lora_tpu_torch.models.builder import dummy_batch
 from sam3_lora_tpu_torch.models.lora import trainable_parameters
 from sam3_lora_tpu_torch.ops import attention_kernel as ak
-from sam3_lora_tpu_torch.ops import gemm_int8, quant
+from sam3_lora_tpu_torch.ops import gemm_int8, quant, remat
 from sam3_lora_tpu_torch.ops import window_attention as wa
 from sam3_lora_tpu_torch.train.losses import compute_losses
 
@@ -85,16 +88,18 @@ def spies(monkeypatch):
     return calls
 
 
-def _step(cfg, lora, seed=0, on_model=None):
+def _step(cfg, lora, seed=0, on_model=None, prequant=True):
     """(loss, adapter gradients) of one training step with live adapters and
-    seeded dropout; ``on_model`` sees the model before the step."""
+    seeded dropout; ``on_model`` sees the model before the step. An int8
+    config's base is prequantized unless ``prequant`` is False (the weights
+    stay float and are quantized on every call)."""
     model = build_sam3_image_model(cfg, lora=lora, device="cpu")
     init_model(model, torch.Generator().manual_seed(0))
     with torch.no_grad():
         for n, p in model.named_parameters():
             if n.endswith("lora_b"):
                 p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
-    if cfg.base_quant != "none":
+    if cfg.base_quant != "none" and prequant:
         quant.prequantize_model(model, cfg.base_quant_min_dim)
     if on_model is not None:
         on_model(model)
@@ -148,58 +153,120 @@ def test_split_policies_match_windows_only_int8(windows_only_int8_step, policy):
         torch.testing.assert_close(grads[n], ref[n], rtol=0, atol=1e-5, msg=n)
 
 
-@pytest.mark.parametrize("tier", ["bf16", "int8"])
-@pytest.mark.parametrize("policy", ["block_mid", "wo_block_mid"])
+# rank 8, no LoRA dropout: the adapted int8 layers take K5 (GEMM_LORA_FUSED)
+FUSED_LORA = LoRAConfig(rank=8, alpha=16.0, dropout=0.0, target_modules=LORA.target_modules)
+VIT_LAYERS = (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8", "int8-dynamic", "int8-fused"])
+@pytest.mark.parametrize("policy", ["block_mid", "wo_block_mid", "windows_only", "full"])
 def test_mlp_replay_stops_before_fc2_frozen_product(monkeypatch, policy, tier):
-    """Under the split policies a windowed block computes qkv's and fc1's
-    frozen products twice (forward and replay) and proj's and fc2's once:
-    the MLP region's replay stops before fc2's product, which no gradient
-    reads, as XLA drops it. A spy counts each frozen product that ran to
-    its end (F.linear of the float tier, int8_matmul_prequant of the int8
-    one), by the layer whose weight it read."""
+    """No replay computes fc2's frozen product, which no gradient reads, as
+    XLA drops it; nor the encoder's linear2 under ``enc_remat``. With every
+    dropout above 0 (drop-path 0.2 after fc2, encoder dropout 0.1 after
+    linear2) a rematted ViT block computes qkv's and fc1's frozen products
+    twice (forward and replay), proj's twice where the block replays whole
+    (``full``, ``windows_only``) and once where its MLP is a region of its
+    own (``block_mid``, ``wo_block_mid``), fc2's once; an encoder layer
+    linear1's twice and linear2's once. Tiers: the float F.linear, the
+    prequantized int8 Function (K4), the int8 Function that quantizes per
+    call (``_Int8Matmul``, K4) and the fused adapter Function (K5, rank 8,
+    LoRA dropout 0), whose products the spies count where they run: F.linear
+    by the weight it read, K4 and K5 by the LoRALinear that called them."""
     from sam3_lora_tpu_torch.models import layers
 
     cfg = tiny_model_config(vit_remat_policy=policy, **DROPOUT,
-                            **(INT8 if tier == "int8" else {}))
+                            **({} if tier == "bf16" else INT8))
+    lora = FUSED_LORA if tier == "int8-fused" else LORA
+    monkeypatch.setattr(gemm_int8, "GEMM_LORA_FUSED", tier == "int8-fused")
     calls, names = collections.Counter(), {}
 
     def on_model(model):
         for name, m in model.named_modules():
             if ".trunk.blocks." in name and name.endswith(("qkv", "proj", "fc1", "fc2")):
-                names[id(m.weight)] = name.split(".trunk.blocks.")[1]
+                key = name.split(".trunk.blocks.")[1]
+            elif ".encoder.layers." in name and name.endswith(("linear1", "linear2")):
+                key = "enc." + name.split(".encoder.layers.")[1]
+            else:
+                continue
+            names[id(m.weight if tier == "bf16" else m)] = key
 
-    def spied(fn, weight_arg):
-        def wrapped(*a, **k):
-            out = fn(*a, **k)
-            if id(a[weight_arg]) in names:
-                calls[names[id(a[weight_arg])]] += 1
+    if tier == "bf16":
+        linear = torch.nn.functional.linear
+
+        def spied_linear(x, w, *a, **k):
+            out = linear(x, w, *a, **k)
+            if id(w) in names:
+                calls[names[id(w)]] += 1
             return out
-        return wrapped
-
-    if tier == "int8":
-        monkeypatch.setattr(layers, "int8_matmul_prequant", spied(quant.int8_matmul_prequant, 1))
+        monkeypatch.setattr(layers.F, "linear", spied_linear)
     else:
-        monkeypatch.setattr(layers.F, "linear", spied(torch.nn.functional.linear, 1))
-    _step(cfg, LORA, on_model=on_model)
-    assert len(names) == 4 * cfg.vit_depth
+        stack, forward = [], layers.LoRALinear.forward
+
+        def traced(self, x):
+            stack.append(names.get(id(self)))
+            try:
+                return forward(self, x)
+            finally:
+                stack.pop()
+
+        def counted(fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                if stack and stack[-1] is not None:
+                    calls[stack[-1]] += 1
+                return out
+            return wrapped
+        monkeypatch.setattr(layers.LoRALinear, "forward", traced)
+        for fn in ("int8_gemm_wres", "int8_lora_gemm_wres"):
+            monkeypatch.setattr(gemm_int8, fn, counted(getattr(gemm_int8, fn)))
+    _step(cfg, lora, on_model=on_model, prequant=tier != "int8-dynamic")
+    assert len(names) == 4 * cfg.vit_depth + 2 * cfg.enc_layers
     for i in range(cfg.vit_depth):
-        replayed = policy == "block_mid" or i not in cfg.vit_global_blocks
-        twice = 2 if replayed else 1
-        got = {layer: calls[f"{i}.{path}"] for layer, path in (
-            ("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))}
-        assert got == {"qkv": twice, "proj": 1, "fc1": twice, "fc2": 1}, (i, got)
+        windowed = i not in cfg.vit_global_blocks
+        replayed = policy in ("block_mid", "full") or windowed
+        whole = replayed and policy in ("windows_only", "full")
+        got = {layer: calls[f"{i}.{path}"] for layer, path in VIT_LAYERS}
+        want = {"qkv": 1 + replayed, "proj": 1 + whole, "fc1": 1 + replayed, "fc2": 1}
+        assert got == want, (i, got)
+    for i in range(cfg.enc_layers):
+        got = (calls[f"enc.{i}.linear1"], calls[f"enc.{i}.linear2"])
+        assert got == (2, 1), (i, got)
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8-fused"])
+@pytest.mark.parametrize("policy", ["windows_only", "full"])
+def test_held_masks_change_no_number(monkeypatch, policy, tier):
+    """Holding the drop-path and dropout masks past the regions (and saving
+    the fused Function's operands before its product) changes no number:
+    the step's loss and every adapter gradient equal, bit for bit, those of
+    a run whose masks are saved through the regions and redrawn by their
+    replays."""
+    cfg = tiny_model_config(vit_remat_policy=policy, **DROPOUT,
+                            **({} if tier == "bf16" else INT8))
+    lora = FUSED_LORA if tier == "int8-fused" else LORA
+    monkeypatch.setattr(gemm_int8, "GEMM_LORA_FUSED", tier == "int8-fused")
+    loss, grads = _step(cfg, lora)
+    monkeypatch.setattr(remat, "held", contextlib.nullcontext)
+    ref_loss, ref = _step(cfg, lora)
+    assert loss == ref_loss
+    assert sorted(grads) == sorted(ref)
+    for n in ref:
+        assert torch.equal(grads[n], ref[n]), n
 
 
 def test_train_int8_launch_counts_match_chip_smoke(card_routes, spies):
     """A CPU rehearsal of chip_smoke's train-int8 counts: the windows_only
-    policy, where a windowed block replays whole and its drop-path mask,
-    saved after fc2, pulls the replay through fc2's product in every block
-    whose rate is above 0."""
+    policy, where a windowed block replays whole but for fc2's frozen
+    product, whose drop-path mask is held past the region: 284 K4 launches
+    a step at the full config."""
     cfg = tiny_model_config(
         d_model=16, enc_heads=2, dec_heads=2, base_quant="int8", base_quant_min_dim=32,
         flash_attention_min_seq=16, vit_drop_path_rate=0.2)
     _step(cfg, LORA)
     assert dict(spies) == chip_smoke.train_step_launches(cfg)
+    full = chip_smoke.train_step_launches(chip_smoke.model_config(int8=True))
+    assert full["int8_gemm_wres"] == 284
 
 
 @pytest.mark.parametrize("policy,encoder,win,enc", [
