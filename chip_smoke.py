@@ -9,7 +9,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    plain PyTorch version, on the operands the serving path
                    hands it; the backward kernels (and the forward's
                    log-sum-exp) against attention_packed_bwd_plain on the
-                   operands of the training path at batch 4; the window
+                   operands of the training path at batch 4, each also
+                   launched twice for equal bits, with its share of the
+                   5-product bound and of the 7-product floor; the window
                    routes K1', W-g, W-p and W-qkv (with and without RoPE)
                    forward at serving's 9 windows and backward at batch 8;
                    the int8 tier's K4/K6 (each its first pass and the
@@ -253,6 +255,27 @@ BWD_REPLACES = {
 }
 
 
+def bwd_bounds(heads: int, l: int, dh: int, ms: float):
+    """(bound_ms, bound_by, floor_ms, text) of one backward call: the roofline
+    bound on measure.attention_work's 5 products, the 7-product floor the
+    two-pass design computes (S and dP formed in both passes), and both
+    shares of the kernel's ``ms``."""
+    ops, nbytes = attention_work(heads, l, dh, True)
+    bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
+    floor_ms = roofline(1.4 * ops / PEAK_BF16, nbytes)[0]
+    text = (f"roofline {bound_ms:.4f} ms ({bound_by}; share {bound_ms / ms:.3f}), 7-product "
+            f"floor {floor_ms:.4f} ms (share {floor_ms / ms:.3f})")
+    return bound_ms, bound_by, floor_ms, text
+
+
+def check_deterministic(tag: str, first, second, failed: list) -> bool:
+    """Two launches of a backward on the same operands give the same bits."""
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    if not same:
+        failed.append(f"{tag} backward: two launches differ")
+    return same
+
+
 def phase_backward_kernels(g: torch.Generator):
     """The backward kernels on the training path's operands at batch 4 (and
     4 prompts): the forward with its log-sum-exp, then dq/dk/dv from the
@@ -263,7 +286,10 @@ def phase_backward_kernels(g: torch.Generator):
         o, lse = attention_kernel.attention_packed_cuda(q, k, v, scale, dh, cos, sin, with_lse=True)
         do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
         grads = attention_kernel.attention_packed_bwd_cuda(q, k, v, o, lse, do, scale, dh, cos, sin)
+        again = attention_kernel.attention_packed_bwd_cuda(q, k, v, o, lse, do, scale, dh, cos, sin)
         torch.cuda.synchronize()
+        same = check_deterministic(entry.__name__, grads, again, failed)
+        del again
         refs = attention_kernel.attention_packed_bwd_plain(q, k, v, o, do, scale, dh, cos, sin)
         qh, kh = (attention_kernel._heads(t, dh) for t in (q, k))
         if cos is not None:
@@ -286,8 +312,8 @@ def phase_backward_kernels(g: torch.Generator):
             q, k, v, o, lse, do, scale, dh, cos, sin))
         plain_ms = median_ms(lambda: attention_kernel.attention_packed_bwd_plain(
             q, k, v, o, do, scale, dh, cos, sin), reps=3)
-        ops, nbytes = attention_work(q.shape[0] * q.shape[2] // dh, q.shape[1], dh, True)
-        bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
+        heads = q.shape[0] * q.shape[2] // dh
+        bound_ms, bound_by, _, bounds = bwd_bounds(heads, q.shape[1], dh, ms)
         # the library's backward on the rotated operands: autograd of one
         # scaled_dot_product_attention call, its forward outside the timing
         qh, kh, vh = (t.requires_grad_(True) for t in sdpa_heads(q, k, v, dh, cos, sin))
@@ -299,8 +325,8 @@ def phase_backward_kernels(g: torch.Generator):
         torch.cuda.empty_cache()
         print(f"kernel {entry.__name__} backward q{tuple(q.shape)} stride{q.stride()}: "
               f"max_abs_err {', '.join(parts)} ({KERNEL_BWD_RTOL} x max|plain|), lse {lse_err:.3e} "
-              f"(bound {LSE_ATOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, roofline "
-              f"{bound_ms:.4f} ms ({bound_by}), scaled_dot_product_attention backward "
+              f"(bound {LSE_ATOL}), two launches equal {same}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {bounds}, scaled_dot_product_attention backward "
               f"{lib_ms:.4f} ms", flush=True)
         rows.append({"name": entry.__name__ + "_bwd", "route": "cuda", "source": BWD_SOURCE,
                      "replaces": BWD_REPLACES[entry.__name__], "launches": 0,
@@ -410,7 +436,10 @@ def phase_window_route_kernels(g: torch.Generator):
         do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
         bufs = op.buffers(3)
         grads = ak.attention_bwd_cuda(q, k, v, o, lse, do, op.scale, op.cos, op.sin, out=bufs)
+        grads = [t.clone() for t in grads]
+        again = ak.attention_bwd_cuda(q, k, v, o, lse, do, op.scale, op.cos, op.sin, out=bufs)
         torch.cuda.synchronize()
+        same = check_deterministic(name, grads, again, failed)
         refs = ak.attention_bwd_plain(q, k, v, o, do, op.scale, op.cos, op.sin)
         errs, parts = [], []
         for gname, a, b in zip(("dq", "dk", "dv"), grads, refs):
@@ -420,14 +449,13 @@ def phase_window_route_kernels(g: torch.Generator):
             parts.append(f"{gname} {e:.3e} (bound {bnd:.3e})")
             if not e <= bnd:
                 failed.append(f"{name} backward {gname}: max abs err {e:.3e} > {bnd:.3e}")
-        del grads, refs
+        del grads, again, refs
         ms = median_ms(lambda: ak.attention_bwd_cuda(q, k, v, o, lse, do, op.scale, op.cos,
                                                      op.sin, out=bufs))
         plain_ms = median_ms(lambda: ak.attention_bwd_plain(q, k, v, o, do, op.scale, op.cos,
                                                             op.sin), reps=3)
         n, p, l, dh = q.shape
-        ops, nbytes = attention_work(n * p, l, dh, True)
-        bound_ms, bound_by = roofline(ops / PEAK_BF16, nbytes)
+        bound_ms, bound_by, _, bounds = bwd_bounds(n * p, l, dh, ms)
         qh, kh, vh = (t.requires_grad_(True) for t in sdpa_operands(q, k, v, op.cos, op.sin))
         lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=op.scale)
         doh = do.contiguous()
@@ -436,8 +464,8 @@ def phase_window_route_kernels(g: torch.Generator):
         del qh, kh, vh, lib_out, doh, op, o, lse, do, bufs
         torch.cuda.empty_cache()
         print(f"kernel {name} backward q{tuple(q.shape)} stride{q.stride()}: max_abs_err "
-              f"{', '.join(parts)} ({KERNEL_BWD_RTOL} x max|plain|), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, roofline {bound_ms:.4f} ms ({bound_by}), "
+              f"{', '.join(parts)} ({KERNEL_BWD_RTOL} x max|plain|), two launches equal {same}, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {bounds}, "
               f"scaled_dot_product_attention backward {lib_ms:.4f} ms", flush=True)
         rows.append({"name": name + "_bwd", "route": "cuda", "source": BWD_SOURCE,
                      "replaces": ROUTE_REPLACES[name][1], "launches": 0, "max_abs_err": max(errs),

@@ -1,93 +1,195 @@
 // Packed multi-head attention backward for Hopper (sm_90a): dQ, dK, dV of the
-// forward in attention_fwd.cu, one source for the three entry points of the
-// training path:
+// forward in attention_fwd.cu, one source for every training-path entry:
 //
 //   window_attention_rope_packed  replaces sam3_lora_tpu/ops/window_attention.py
-//                                 _bwd_kernel_rope_packed (via _packed_pallas),
-//                                 the 28 windowed ViT blocks: 576-token
+//   (K1), window_attention_packed _bwd_kernel_rope_packed (:445) and
+//   (K1'), the grouped and pair  _bwd_kernel_packed (:426), and the backward
+//   routes (W-g, W-p)             calls of _window_pallas (:507) and
+//                                 _window_pallas_packed (:584): 576-token
 //                                 windows, 16 heads x 64.
-//   long_attention_rope_packed    replaces sam3_lora_tpu/ops/long_attention.py
-//   long_attention_packed         _make_bwd_kernel (via _bwd_call), with and
-//                                 without rope: the 4 global ViT blocks (5184
-//                                 tokens, 16 x 64) and the 6 fusion-encoder
+//   long_attention_rope_packed    replace sam3_lora_tpu/ops/long_attention.py
+//   long_attention_packed         _make_bwd_kernel (:218, pallas_call :367):
+//   (K2, K3)                      the 4 global ViT blocks (5184 tokens,
+//                                 16 x 64) and the 6 fusion-encoder
 //                                 self-attentions (5184 tokens, 8 x 32).
+//   window_attention_qkv (W-qkv)  replaces sam3_lora_tpu/ops/window_qkv.py
+//                                 _call_bwd (:208, pallas_call :228).
 //
 // It computes the standard attention backward, FlashAttention-2 style, from
 // q, k, v, the saved output O, dO and the forward's fp32 row log-sum-exp:
 //
 //   P  = exp(Q K^T * scale - LSE)         recomputed tile by tile
-//   D  = rowsum(dO o O)                   fp32, one small pass (rowdot_kernel)
-//   dV = P^T dO
-//   dS = P o (dO V^T - D)
+//   D  = rowsum(dO o O)                   fp32
+//   dV = P^T dO,  dS = P o (dO V^T - D)
 //   dQ = dS K * scale,  dK = dS^T Q * scale
 //
-// in two passes that own their outputs, so there are no atomics and the
-// result is deterministic:
-//   * dkdv_kernel: one block of 4 warps per (64-key tile, head); each warp
-//     holds its 16 keys of K and V as mma.sync A fragments and loops over the
-//     64-query tiles, forming S^T and dP^T in registers, turning P^T and dS^T
-//     into A fragments of the next products (as the forward does with P), and
-//     accumulating dV and dK in fp32 registers; each written once.
-//   * dq_kernel: one block per (64-query tile, head), holding Q and dO as A
-//     fragments and looping over the K/V tiles, accumulating dQ likewise.
-// With RoPE, q and k are rotated in fp32 on the way into shared memory and
-// rounded to bf16, as in the forward, and dQ and dK are rotated back (the
-// transpose of the rotation) before the write: they are the gradients of the
-// unrotated inputs. The ragged tail of L is masked (keys past L get P = 0,
-// rows past L are not written). Outputs take row strides, so the three
-// gradients of a packed qkv tensor land in one (N, L, 3*P*DH) buffer.
+// Three kernels, no atomics (each output element is written once, by one
+// CTA, so two runs give the same bits):
+//   * bwd_prep_kernel: one warp per (sequence, row): D, lse in log2 units
+//     (both padded to whole 64-row tiles: +inf and 0 past L, so padded
+//     query rows get P = 0), and with RoPE q and k rotated once into
+//     contiguous (N, P, L, dh) scratch (fp32 math, bf16 rounding, as the
+//     forward rotates its tiles). The main kernels then rotate nothing;
+//     without RoPE they read q and k in place through their strided views.
+//   * dkdv_kernel: a CTA owns 64 keys of one head: one consumer warpgroup
+//     and one producer warp. K and V come in once by TMA; the producer streams
+//     (Q tile, dO tile, the tile's lse and D) for each 64-query tile through
+//     a ring of STAGES stages (a full and an empty mbarrier each). Per stage
+//     the consumers run wgmma S^T = K Q^T and dP^T = V dO^T (A and B
+//     K-major in shared memory), forms P^T and dS^T in registers, packs them
+//     to bf16 as register A operands (the accumulator fragment of an m64n16
+//     slice is the A fragment of one k16 step) and run dV += P^T dO and
+//     dK += dS^T Q, with the same Q and dO stage read MN-major (wgmma's
+//     transpose flag). A stage is released once the group that read it has
+//     retired (after the next stage's S^T/dP^T wait), so the two groups of
+//     consecutive tiles queue back to back.
+//   * dq_kernel: a CTA owns 64 queries; Q, dO (TMA) and their lse, D
+//     (registers) are loaded once, K and V tiles stream through the ring:
+//     S = Q K^T, dP = dO V^T, dS in registers (keys past L masked to P = 0),
+//     dQ += dS K with K read MN-major.
+// Epilogues scale dQ and dK, rotate them back with the transpose of the
+// rotation (they are the gradients of the unrotated inputs), round to bf16
+// and store rows < L straight from registers into the strided output views,
+// so the three gradients of a packed qkv land in one (N, L, 3*P*dh) buffer.
+// TMA zero-fills rows past L (the maps' L dimension is the sequence's own).
 //
-// What bounds it on the H100: each (query, key) pair costs 8*DH flops of
-// tensor-core work across the two passes (S twice, dP twice, dV, dK, dQ)
-// against tiles re-read from L2, so it is bound by tensor-core issue like the
-// forward. Left for later: a wgmma/TMA pipeline and load/math overlap.
+// What bounds it on the H100: tensor-core operations. The two passes form S
+// and dP twice, so a head costs 7 products of 2 * L^2 * dh (the 5-product
+// count of measure.attention_work times 1.4) at 989 TFLOP/s; the bytes (q,
+// k, v, o, dO, dq, dk, dv once, 1/39 of the time at L = 576) never bind.
+// The design feeds the tensor cores from a TMA ring without register
+// staging, keeps P and dS in registers, and rotates with RoPE once.
+//
+// Tile: 64-row CTAs of 5 warps, 3 stages. L = 576 is 9 x 64 and 5184 is
+// 81 x 64, so no warpgroup idles on a window's last tile, and two (at dh 64:
+// dkdv 166 registers, dq 144) or three (dh 32: 126, 125) CTAs share an SM,
+// so one CTA's loads, exponentials and epilogue overlap another's products. Within a CTA the
+// exponentials of a tile run while its dP^T (dP) product is in the tensor
+// cores, and dS^T while dV is. Measured on the card and not kept: 128-row
+// CTAs of two warpgroups sharing each stage (one CTA an SM), 2 or 4 stages,
+// and K, V (Q, dO) held as register A operands (spills). No setmaxnreg: it
+// takes whole warpgroups, and a producer warpgroup would cost more
+// registers than its one warp.
 
 #include "attention_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace sam3;
+using namespace sam3::sm90;
 
-// D[n, p, l] = sum_d dO[n, p, l, d] * O[n, p, l, d] in fp32: one warp per
-// (n, l) row, 16-byte chunks, a shuffle sum within each head's lanes.
+constexpr int STAGES = 3;
+constexpr int TILE = 64;  // rows of a tile: one warpgroup's m64
+constexpr int CTA_THREADS = 128 + 32;  // a consumer warpgroup and a producer warp
+constexpr int PRODUCER = 4;        // the producer's warp
+
+// CTAs an SM: three at DH = 32 (at most 136 registers a thread, no spills),
+// two at 64 (at most 204; 136 would spill dkdv's 128 accumulator values)
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-rowdot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-              float* __restrict__ D, int N, int L, int P, Strides so, Strides sd) {
-  const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= (long long)N * L) return;  // uniform across the warp
-  const long long n = row / L;
-  const int l = (int)(row % L);
-  const int lane = threadIdx.x % 32;
-  constexpr int G = DH / 8;  // lanes per head (divides 32)
-  const int chunks = P * G;
-  const bf16* orow = o + so.at(n, 0) + (long long)l * so.l;
-  const bf16* drow = dout + sd.at(n, 0) + (long long)l * sd.l;
-  for (int c0 = 0; c0 < chunks; c0 += 32) {
-    const int c = c0 + lane;
-    float acc = 0.f;
-    if (c < chunks) {
-      const int h = c / G, d = (c % G) * 8;  // head, first of its 8 elements
-      const uint4 a = *reinterpret_cast<const uint4*>(orow + h * so.p + d);
-      const uint4 b = *reinterpret_cast<const uint4*>(drow + h * sd.p + d);
-      const bf16* pa = reinterpret_cast<const bf16*>(&a);
-      const bf16* pb = reinterpret_cast<const bf16*>(&b);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc += __bfloat162float(pa[j]) * __bfloat162float(pb[j]);
-    }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (c < chunks && lane % G == 0) D[(n * P + c / G) * L + l] = acc;
-  }
+constexpr int min_blocks() {
+  return DH == 32 ? 3 : 2;
 }
 
-// Scale the two accumulator rows of this thread, rotate them back with the
-// transpose of the forward's rotate-half RoPE at sequence position `row`, and
-// write them as bf16 at `dst` (this thread's first column of the row).
+// 2^x on the approximate unit (relative error ~2^-22; results below 2^-126
+// flush to 0, where P rounds to 0 in bf16 anyway)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One 64-row tile of an (L, DH) bf16 operand as TMA lays it in shared
+// memory: rows of DH * 2 bytes (128: SWIZZLE_128B; 64: SWIZZLE_64B), 8-row
+// groups 8 rows apart, 1024-byte aligned bases.
+template <int DH>
+struct Tile {
+  static constexpr int ROW = DH * 2;
+  static constexpr int BYTES = TILE * ROW;
+  static constexpr uint64_t SWIZZLE = DH == 64 ? 1 : 2;  // descriptor layout type
+  // K-major (the contraction along the rows): a k16 step is 32 bytes on
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t saddr) {
+    return DH == 64 ? sw128_desc(saddr) : sw64_desc(saddr);
+  }
+  static constexpr int KSTEP = 32 >> 4;
+  // MN-major (the contraction down the rows): SBO = 8 rows between 8-row
+  // groups of the contraction; LBO, the step between DH-wide swizzle atoms,
+  // is never used (DH is one atom) and holds the same value. A k16 step is
+  // 16 rows on.
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t saddr) {
+    constexpr uint64_t group = (8 * ROW) >> 4;
+    return (uint64_t)((saddr & 0x3FFFF) >> 4) | (group << 16) | (group << 32) | (SWIZZLE << 62);
+  }
+  static constexpr int MNSTEP = (16 * ROW) >> 4;
+};
+
+// d (64 x 64) = (scale_d ? d : 0) + A (64 x 16) . B (64 x 16)^T, A and B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 pairs in registers: the accumulator
+// layout of an m64n16 slice) . B (16 x 64), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same, 64 x 32.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x DH) += A (registers) . B (16 x DH, MN-major in shared memory)
+template <int DH>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n32(d, a, db);
+}
+
+// Scale the two accumulator rows of this thread (a wgmma m64nDH fragment:
+// acc[4j + 2r + e] at row row0 + g + 8r, column 8j + 2t + e), rotate them
+// back with the transpose of the forward's rotate-half RoPE at sequence
+// position `row`, and write the rows < L as bf16 into `base` (row stride sl).
 template <int DH, bool ROPE>
-__device__ __forceinline__ void store_rows(float (&acc)[DH / 8][4], bf16* base,
-                                           long long sl, int row0, int L,
-                                           float scale, const float* __restrict__ cos_t,
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* base, long long sl,
+                                           int row0, int L, float scale,
+                                           const float* __restrict__ cos_t,
                                            const float* __restrict__ sin_t) {
   constexpr int OT = DH / 8, H = DH / 2;
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
@@ -98,8 +200,8 @@ __device__ __forceinline__ void store_rows(float (&acc)[DH / 8][4], bf16* base,
     float x[OT][2];
 #pragma unroll
     for (int j = 0; j < OT; ++j) {
-      x[j][0] = acc[j][r * 2] * scale;
-      x[j][1] = acc[j][r * 2 + 1] * scale;
+      x[j][0] = acc[4 * j + 2 * r] * scale;
+      x[j][1] = acc[4 * j + 2 * r + 1] * scale;
     }
     if (ROPE) {
       // forward: (a, b) -> (a c - b s, a s + b c); its transpose:
@@ -125,302 +227,518 @@ __device__ __forceinline__ void store_rows(float (&acc)[DH / 8][4], bf16* base,
   }
 }
 
+// D = rowsum(dO o O) and lse * log2(e) into padded (heads, lpad) fp32
+// scratch (0 and +inf for rows L..lpad-1), and with ROPE q, k rotated into
+// contiguous (N, P, L, DH) qr, kr. One warp per (n, l) row of the padded
+// length; no fused multiply-add anywhere, so the plain version
+// (ops/attention_kernel.py::attention_bwd_prep_plain) gives the same bits:
+// each lane sums its 8 products in order (a product of two bf16 is exact in
+// fp32), then a butterfly over the head's DH / 8 lanes.
 template <int DH, bool ROPE>
-__global__ void __launch_bounds__(THREADS)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ D,
-            bf16* __restrict__ dk, bf16* __restrict__ dv,
-            const float* __restrict__ cos_t, const float* __restrict__ sin_t, int L,
-            int P, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
-            Strides sdv, float scale) {
-  using Lay = Layout<DH>;
-  constexpr int LDH = Lay::LDH;
-  constexpr int KS = DH / 16;  // k16 steps over the head dim
-  constexpr int NT = BQ / 8;   // n8 tiles of S^T per query tile
-  constexpr int OT = DH / 8;   // n8 tiles of dK, dV
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + Lay::tile;
-  bf16* Ks = dOs + Lay::tile;
-  bf16* Vs = Ks + Lay::tile;
-  float* lse_s = reinterpret_cast<float*>(Vs + Lay::tile);  // log2 units
-  float* D_s = lse_s + BQ;
-
-  const int head = blockIdx.y;
-  const long long n = head / P;
-  const int p = head % P;
-  const int k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane & 3;
-
-  load_tile<DH, ROPE>(Ks, k + sk.at(n, p) + (long long)k0 * sk.l, sk.l,
-                      min(BK, L - k0), cos_t, sin_t, k0);
-  load_tile<DH, false>(Vs, v + sv.at(n, p) + (long long)k0 * sv.l, sv.l,
-                       min(BK, L - k0), nullptr, nullptr, 0);
-  __syncthreads();
-  uint32_t kf[KS][4], vf[KS][4];  // this warp's 16 keys of K and V as A fragments
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a(kf[kk], Ks + warp * 16 * LDH + kk * 16, LDH);
-    load_a(vf[kk], Vs + warp * 16 * LDH + kk * 16, LDH);
+__global__ void __launch_bounds__(128)
+bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, bf16* __restrict__ qr, bf16* __restrict__ kr,
+                float* __restrict__ lse2, float* __restrict__ D,
+                const float* __restrict__ cos_t, const float* __restrict__ sin_t, int N, int L,
+                int lpad, int P, Strides sq, Strides sk, Strides so, Strides sd) {
+  const long long row = (long long)blockIdx.x * 4 + threadIdx.x / 32;
+  if (row >= (long long)N * lpad) return;  // uniform across the warp
+  const long long n = row / lpad;
+  const int l = (int)(row % lpad);
+  const int lane = threadIdx.x % 32;
+  if (l >= L) {
+    for (int h = lane; h < P; h += 32) {
+      lse2[(n * P + h) * lpad + l] = INFINITY;
+      D[(n * P + h) * lpad + l] = 0.f;
+    }
+    return;
   }
+  for (int h = lane; h < P; h += 32)
+    lse2[(n * P + h) * lpad + l] = __fmul_rn(lse[(n * P + h) * L + l], LOG2E);
 
-  const float sl2 = scale * LOG2E;
-  const float* lse_h = lse + (long long)head * L;
-  const float* D_h = D + (long long)head * L;
-  float dka[OT][4], dva[OT][4];
+  constexpr int G = DH / 8;  // lanes per head (divides 32)
+  const bf16* orow = o + so.at(n, 0) + (long long)l * so.l;
+  const bf16* drow = dout + sd.at(n, 0) + (long long)l * sd.l;
+  for (int c0 = 0; c0 < P * G; c0 += 32) {
+    const int c = c0 + lane;
+    float acc = 0.f;
+    if (c < P * G) {
+      const int h = c / G, d = (c % G) * 8;  // head, first of its 8 elements
+      const uint4 a = *reinterpret_cast<const uint4*>(orow + h * so.p + d);
+      const uint4 b = *reinterpret_cast<const uint4*>(drow + h * sd.p + d);
+      const bf16* pa = reinterpret_cast<const bf16*>(&a);
+      const bf16* pb = reinterpret_cast<const bf16*>(&b);
 #pragma unroll
-  for (int j = 0; j < OT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += BQ) {
-    const int q_valid = min(BQ, L - q0);
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile<DH, ROPE>(Qs, q + sq.at(n, p) + (long long)q0 * sq.l, sq.l, q_valid,
-                        cos_t, sin_t, q0);
-    load_tile<DH, false>(dOs, dout + sdo.at(n, p) + (long long)q0 * sdo.l, sdo.l,
-                         q_valid, nullptr, nullptr, 0);
-    if (threadIdx.x < BQ) {
-      const int r = threadIdx.x;  // rows past L get P = 0 through an infinite LSE
-      lse_s[r] = r < q_valid ? lse_h[q0 + r] * LOG2E : INFINITY;
-      D_s[r] = r < q_valid ? D_h[q0 + r] : 0.f;
+      for (int j = 0; j < 8; ++j)
+        acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(pb[j]), __bfloat162float(pa[j])));
     }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries per warp
-    float st[NT][4], dpt[NT][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        load_b_nk(b, Qs + j * 8 * LDH + kk * 16, LDH);
-        mma(st[j], kf[kk], b[0], b[1]);
-        mma(st[j + 1], kf[kk], b[2], b[3]);
-        load_b_nk(b, dOs + j * 8 * LDH + kk * 16, LDH);
-        mma(dpt[j], vf[kk], b[0], b[1]);
-        mma(dpt[j + 1], vf[kk], b[2], b[3]);
-      }
-    }
-
-    // P^T and dS^T = P^T o (dP^T - D), packed as A fragments over the queries
-    uint32_t pf[BQ / 16][4], sf[BQ / 16][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + t * 2;  // this thread's two query columns
-      const float l0 = lse_s[c], l1 = lse_s[c + 1], d0 = D_s[c], d1 = D_s[c + 1];
-      const float p0 = exp2f(st[j][0] * sl2 - l0), p1 = exp2f(st[j][1] * sl2 - l1);
-      const float p2 = exp2f(st[j][2] * sl2 - l0), p3 = exp2f(st[j][3] * sl2 - l1);
-      pf[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      sf[j / 2][(j & 1) * 2] = pack_bf16(p0 * (dpt[j][0] - d0), p1 * (dpt[j][1] - d1));
-      sf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2 * (dpt[j][2] - d0), p3 * (dpt[j][3] - d1));
-    }
-
-    // dV += P^T dO, dK += dS^T Q (contracting over the 64 queries)
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];
-        load_b_kn(b, dOs + kk * 16 * LDH + j * 8, LDH);
-        mma(dva[j], pf[kk], b[0], b[1]);
-        mma(dva[j + 1], pf[kk], b[2], b[3]);
-        load_b_kn(b, Qs + kk * 16 * LDH + j * 8, LDH);
-        mma(dka[j], sf[kk], b[0], b[1]);
-        mma(dka[j + 1], sf[kk], b[2], b[3]);
-      }
-    }
+    for (int off = G / 2; off > 0; off >>= 1)
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+    if (c < P * G && lane % G == 0) D[(n * P + c / G) * lpad + l] = acc;
   }
+  if (!ROPE) return;
 
-  const int row0 = k0 + warp * 16;
-  store_rows<DH, ROPE>(dka, dk + sdk.at(n, p), sdk.l, row0, L, scale, cos_t, sin_t);
-  store_rows<DH, false>(dva, dv + sdv.at(n, p), sdv.l, row0, L, 1.f, nullptr, nullptr);
+  // x[:h], x[h:] -> x[:h] cos - x[h:] sin, x[:h] sin + x[h:] cos, 8 pairs a lane
+  constexpr int H = DH / 2, CH = H / 8;  // chunks per half row
+  const float* cs = cos_t + (long long)l * H;
+  const float* sn = sin_t + (long long)l * H;
+  for (int c = lane; c < 2 * P * CH; c += 32) {
+    const bool is_k = c >= P * CH;
+    const int ci = is_k ? c - P * CH : c;
+    const int h = ci / CH, d = (ci % CH) * 8;
+    const bf16* src = is_k ? k + sk.at(n, h) + (long long)l * sk.l
+                           : q + sq.at(n, h) + (long long)l * sq.l;
+    bf16* dst = (is_k ? kr : qr) + ((n * P + h) * L + l) * DH;
+    const uint4 ve = *reinterpret_cast<const uint4*>(src + d);
+    const uint4 vo = *reinterpret_cast<const uint4*>(src + d + H);
+    const bf16* pe = reinterpret_cast<const bf16*>(&ve);
+    const bf16* po = reinterpret_cast<const bf16*>(&vo);
+    uint4 re, ro;
+    uint32_t* qe = reinterpret_cast<uint32_t*>(&re);
+    uint32_t* qo = reinterpret_cast<uint32_t*>(&ro);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      float e2[2], o2[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float e = __bfloat162float(pe[j + i]), od = __bfloat162float(po[j + i]);
+        const float cv = cs[d + j + i], sv = sn[d + j + i];
+        e2[i] = __fsub_rn(__fmul_rn(e, cv), __fmul_rn(od, sv));
+        o2[i] = __fadd_rn(__fmul_rn(e, sv), __fmul_rn(od, cv));
+      }
+      qe[j / 2] = pack_bf16(e2[0], e2[1]);
+      qo[j / 2] = pack_bf16(o2[0], o2[1]);
+    }
+    *reinterpret_cast<uint4*>(dst + d) = re;
+    *reinterpret_cast<uint4*>(dst + d + H) = ro;
+  }
 }
 
-template <int DH, bool ROPE>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ D,
-          bf16* __restrict__ dq, const float* __restrict__ cos_t,
-          const float* __restrict__ sin_t, int L, int P, Strides sq, Strides sk,
-          Strides sv, Strides sdo, Strides sdq, float scale) {
-  using Lay = Layout<DH>;
-  constexpr int LDH = Lay::LDH;
-  constexpr int KS = DH / 16;
-  constexpr int NT = BK / 8;  // n8 tiles of S per K tile
-  constexpr int OT = DH / 8;  // n8 tiles of dQ
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + Lay::tile;
-  bf16* Ks = dOs + Lay::tile;
-  bf16* Vs = Ks + Lay::tile;
-
-  const int head = blockIdx.y;
-  const long long n = head / P;
-  const int p = head % P;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q_valid = min(BQ, L - q0);
-
-  load_tile<DH, ROPE>(Qs, q + sq.at(n, p) + (long long)q0 * sq.l, sq.l, q_valid,
-                      cos_t, sin_t, q0);
-  load_tile<DH, false>(dOs, dout + sdo.at(n, p) + (long long)q0 * sdo.l, sdo.l,
-                       q_valid, nullptr, nullptr, 0);
-  __syncthreads();
-  uint32_t qf[KS][4], df[KS][4];  // this warp's 16 rows of Q and dO
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a(qf[kk], Qs + warp * 16 * LDH + kk * 16, LDH);
-    load_a(df[kk], dOs + warp * 16 * LDH + kk * 16, LDH);
-  }
-  float lse2[2], dd[2];  // rows g and g + 8
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    lse2[r] = row < L ? lse[(long long)head * L + row] * LOG2E : INFINITY;
-    dd[r] = row < L ? D[(long long)head * L + row] : 0.f;
-  }
-
-  const float sl2 = scale * LOG2E;
-  const bf16* kb = k + sk.at(n, p);
-  const bf16* vb = v + sv.at(n, p);
-  float dqa[OT][4];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    const int kv_valid = min(BK, L - k0);
-    __syncthreads();
-    load_tile<DH, ROPE>(Ks, kb + (long long)k0 * sk.l, sk.l, kv_valid, cos_t, sin_t, k0);
-    load_tile<DH, false>(Vs, vb + (long long)k0 * sv.l, sv.l, kv_valid, nullptr, nullptr, 0);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        load_b_nk(b, Ks + j * 8 * LDH + kk * 16, LDH);
-        mma(s[j], qf[kk], b[0], b[1]);
-        mma(s[j + 1], qf[kk], b[2], b[3]);
-        load_b_nk(b, Vs + j * 8 * LDH + kk * 16, LDH);
-        mma(dp[j], df[kk], b[0], b[1]);
-        mma(dp[j + 1], df[kk], b[2], b[3]);
-      }
-    }
-
-    // dS = P o (dP - D), keys past L masked to P = 0, as A fragments over keys
-    uint32_t sf[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t * 2 + (e & 1), r = e >> 1;
-        const float pv = col < kv_valid ? exp2f(s[j][e] * sl2 - lse2[r]) : 0.f;
-        ds[e] = pv * (dp[j][e] - dd[r]);
-      }
-      sf[j / 2][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      sf[j / 2][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-
-    // dQ += dS K (contracting over the 64 keys)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < OT; j += 2) {
-        uint32_t b[4];
-        load_b_kn(b, Ks + kk * 16 * LDH + j * 8, LDH);
-        mma(dqa[j], sf[kk], b[0], b[1]);
-        mma(dqa[j + 1], sf[kk], b[2], b[3]);
-      }
-    }
-  }
-
-  store_rows<DH, ROPE>(dqa, dq + sdq.at(n, p), sdq.l, q0 + warp * 16, L, scale, cos_t,
-                       sin_t);
-}
-
-struct BwdArgs {
-  const bf16 *q, *k, *v, *o, *dout;
-  const float *lse, *cos_t, *sin_t;
-  float* D;
+// What the main kernels take besides their tensor maps. `slots` says, per
+// map (q, k, v, dO), which of its dimensions 1..3 is the row (bits 0-3),
+// the head (4-7) and the sequence (8-11): the host orders them by stride.
+struct MainArgs {
+  const float* lse2;  // (heads, lpad): lse * log2(e), +inf past L
+  const float* D;     // (heads, lpad): rowsum(dO o O), 0 past L
   bf16 *dq, *dk, *dv;
-  int n, l, p;
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  const float *cos_t, *sin_t;
+  Strides sdq, sdk, sdv;
+  int L, lpad, P;
   float scale;
+  int slots[4];
 };
 
-template <int DH, bool ROPE>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  const long long rows = (long long)a.n * a.l;
-  rowdot_kernel<DH><<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
-      a.o, a.dout, a.D, a.n, a.l, a.p, a.so, a.sdo);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+// TMA of one 64-row box at `row` of head p of sequence n.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, int slots,
+                                          uint32_t bar, int row, int p, int n) {
+  auto at = [&](int dim) { return (slots & 15) == dim ? row : ((slots >> 4) & 15) == dim ? p : n; };
+  tma_load_4d(dst, map, bar, 0, at(1), at(2), at(3));
+}
 
-  const dim3 grid((a.l + 63) / 64, a.n * a.p);
-  constexpr int tiles = 4 * Layout<DH>::tile * sizeof(bf16);  // Q, dO, K, V
-  constexpr int dkdv_bytes = tiles + 2 * BQ * sizeof(float);
-  auto kdkdv = dkdv_kernel<DH, ROPE>;
-  err = cudaFuncSetAttribute(kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
-  if (err != cudaSuccess) return err;
-  kdkdv<<<grid, THREADS, dkdv_bytes, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.D, a.dk, a.dv, a.cos_t, a.sin_t, a.l, a.p, a.sq,
-      a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+template <int DH>
+struct Smem {  // dynamic shared memory of either main kernel, 1024-byte aligned tiles
+  static constexpr int BYTES = Tile<DH>::BYTES;
+  static constexpr int OWN = 2 * BYTES;                  // K, V (dkdv) or Q, dO (dq)
+  static constexpr int RING = 2 * STAGES * BYTES;        // Q, dO (dkdv) or K, V (dq)
+  static constexpr int ROWS = 2 * STAGES * TILE * 4;     // lse, D per stage (dkdv)
+  static constexpr int BARS = (1 + 2 * STAGES) * 8;
+  static constexpr int TOTAL = OWN + RING + ROWS + BARS + 1024;
+};
 
-  auto kdq = dq_kernel<DH, ROPE>;
-  err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize, tiles);
+template <int DH>
+__global__ void __launch_bounds__(CTA_THREADS, min_blocks<DH>())
+dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+            const MainArgs a) {
+  using T = Tile<DH>;
+  using S = Smem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (cvta_smem(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + T::BYTES;
+  const uint32_t q_s = base + S::OWN, do_s = q_s + STAGES * T::BYTES;
+  const uint32_t rows_s = base + S::OWN + S::RING;  // lse, then D, per stage
+  const uint32_t bars = rows_s + S::ROWS;
+  const float* rows_p = reinterpret_cast<const float*>(smem_raw + (rows_s - cvta_smem(smem_raw)));
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
+  const int head = blockIdx.y, p = head % a.P, n = head / a.P;
+  const int k0 = blockIdx.x * TILE;
+  const int tiles = (a.L + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);            // the producer's expect_tx; TMA completes the bytes
+      mbar_init(empty(s), 4);           // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER) {
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * T::BYTES);
+      load_rows(k_s, &tk, a.slots[1], kv_full, k0, p, n);
+      load_rows(v_s, &tv, a.slots[2], kv_full, k0, p, n);
+      const float* lse_h = a.lse2 + (long long)head * a.lpad;
+      const float* d_h = a.D + (long long)head * a.lpad;
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * T::BYTES + 2 * TILE * 4);
+        load_rows(q_s + s * T::BYTES, &tq, a.slots[0], full(s), TILE * i, p, n);
+        load_rows(do_s + s * T::BYTES, &tdo, a.slots[3], full(s), TILE * i, p, n);
+        bulk_load(rows_s + s * 2 * TILE * 4, lse_h + TILE * i, TILE * 4, full(s));
+        bulk_load(rows_s + (s * 2 + 1) * TILE * 4, d_h + TILE * i, TILE * 4, full(s));
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup
+  const int t = lane & 3;
+  const uint64_t ka = T::kmajor(k_s), va = T::kmajor(v_s);
+  const float sl2 = a.scale * LOG2E;
+  float dka[DH / 2], dva[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  int prev = 0;
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full(s), (i / STAGES) & 1);
+    const uint32_t qt = q_s + s * T::BYTES, dot = do_s + s * T::BYTES;
+    float st[32], dpt[32];  // S^T (then P^T), dP^T: 64 keys x 64 queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(st, ka + kk * T::KSTEP, T::kmajor(qt) + kk * T::KSTEP, kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(dpt, va + kk * T::KSTEP, T::kmajor(dot) + kk * T::KSTEP, kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T, and the last tile's dV/dK: its stage is free
+    fence_regs(st);
+    if (i > 0 && lane == 0) mbar_arrive(empty(prev));
+
+    // P^T = exp2(S^T scale log2e - lse2) per query column 8j + 2t + e, while
+    // dP^T is in the tensor cores; packed as the A fragments of dV's k16
+    // steps over the 64 queries
+    const float* lse_t = rows_p + s * 2 * TILE;
+    const float* d_t = lse_t + TILE;
+    uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + j * 8 + t * 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[4 * j + e] = exp2_approx(st[4 * j + e] * sl2 - ((e & 1) ? l2.y : l2.x));
+      pa[j / 2][(j & 1) * 2] = pack_bf16(st[4 * j], st[4 * j + 1]);
+      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH>(dva, pa[kk], T::mnmajor(dot) + kk * T::MNSTEP);
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T; dV runs on
+    fence_regs(dpt);
+
+    // dS^T = P^T o (dP^T - D), the A fragments of dK's k16 steps
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(d_t + j * 8 + t * 2);
+      sa[j / 2][(j & 1) * 2] =
+          pack_bf16(st[4 * j] * (dpt[4 * j] - dd.x), st[4 * j + 1] * (dpt[4 * j + 1] - dd.y));
+      sa[j / 2][(j & 1) * 2 + 1] =
+          pack_bf16(st[4 * j + 2] * (dpt[4 * j + 2] - dd.x), st[4 * j + 3] * (dpt[4 * j + 3] - dd.y));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH>(dka, sa[kk], T::mnmajor(qt) + kk * T::MNSTEP);
+    wgmma_commit();
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(dka);
+  fence_regs(dva);
+
+  const int row0 = k0 + 16 * warp;
+  bf16* dk = a.dk + a.sdk.at(n, p);
+  if (a.cos_t != nullptr)
+    store_rows<DH, true>(dka, dk, a.sdk.l, row0, a.L, a.scale, a.cos_t, a.sin_t);
+  else
+    store_rows<DH, false>(dka, dk, a.sdk.l, row0, a.L, a.scale, nullptr, nullptr);
+  store_rows<DH, false>(dva, a.dv + a.sdv.at(n, p), a.sdv.l, row0, a.L, 1.f, nullptr, nullptr);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(CTA_THREADS, min_blocks<DH>())
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const MainArgs a) {
+  using T = Tile<DH>;
+  using S = Smem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (cvta_smem(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, do_s = base + T::BYTES;
+  const uint32_t k_s = base + S::OWN, v_s = k_s + STAGES * T::BYTES;
+  const uint32_t bars = base + S::OWN + S::RING;
+  const uint32_t qo_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+
+  const int head = blockIdx.y, p = head % a.P, n = head / a.P;
+  const int q0 = blockIdx.x * TILE;
+  const int tiles = (a.L + TILE - 1) / TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qo_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == PRODUCER) {
+    if (lane == 0) {
+      mbar_expect_tx(qo_full, 2 * T::BYTES);
+      load_rows(q_s, &tq, a.slots[0], qo_full, q0, p, n);
+      load_rows(do_s, &tdo, a.slots[3], qo_full, q0, p, n);
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * T::BYTES);
+        load_rows(k_s + s * T::BYTES, &tk, a.slots[1], full(s), TILE * i, p, n);
+        load_rows(v_s + s * T::BYTES, &tv, a.slots[2], full(s), TILE * i, p, n);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup; this thread's rows r0 and r0 + 8 (rows past L
+  // read the padding: lse2 +inf, so P = 0)
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp + g;
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = a.lse2[(long long)head * a.lpad + r0 + 8 * h];
+    dd[h] = a.D[(long long)head * a.lpad + r0 + 8 * h];
+  }
+  const uint64_t qa = T::kmajor(q_s), da = T::kmajor(do_s);
+  const float sl2 = a.scale * LOG2E;
+  float dqa[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dqa[i] = 0.f;
+  mbar_wait(qo_full, 0);
+  int prev = 0;
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full(s), (i / STAGES) & 1);
+    const uint32_t kt = k_s + s * T::BYTES, vt = v_s + s * T::BYTES;
+    float sc[32], dp[32];  // S (then P), dP: 64 queries x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(sc, qa + kk * T::KSTEP, T::kmajor(kt) + kk * T::KSTEP, kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_n64(dp, da + kk * T::KSTEP, T::kmajor(vt) + kk * T::KSTEP, kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last tile's dQ: its stage is free
+    fence_regs(sc);
+    if (i > 0 && lane == 0) mbar_arrive(empty(prev));
+
+    // P while dP is in the tensor cores; keys past L masked to P = 0 (their
+    // zero-filled K rows would add nothing either)
+    const int kv_valid = a.L - TILE * i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + t * 2 + (e & 1);
+        sc[4 * j + e] = col < kv_valid ? exp2_approx(sc[4 * j + e] * sl2 - lse2[e >> 1]) : 0.f;
+      }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dS = P o (dP - D), as A fragments over the keys
+    uint32_t sa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sa[j / 2][(j & 1) * 2] =
+          pack_bf16(sc[4 * j] * (dp[4 * j] - dd[0]), sc[4 * j + 1] * (dp[4 * j + 1] - dd[0]));
+      sa[j / 2][(j & 1) * 2 + 1] =
+          pack_bf16(sc[4 * j + 2] * (dp[4 * j + 2] - dd[1]), sc[4 * j + 3] * (dp[4 * j + 3] - dd[1]));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH>(dqa, sa[kk], T::mnmajor(kt) + kk * T::MNSTEP);
+    wgmma_commit();
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(dqa);
+
+  bf16* dq = a.dq + a.sdq.at(n, p);
+  const int row0 = q0 + 16 * warp;
+  if (a.cos_t != nullptr)
+    store_rows<DH, true>(dqa, dq, a.sdq.l, row0, a.L, a.scale, a.cos_t, a.sin_t);
+  else
+    store_rows<DH, false>(dqa, dq, a.sdq.l, row0, a.L, a.scale, nullptr, nullptr);
+}
+
+// ---- host side
+
+// The TMA map of an (N, P, L, DH) bf16 view for 64-row boxes. `spec` (from
+// ops/attention_kernel.py::tma_map): the extents of dimensions 1..3, their
+// strides in bytes, and the slots word (which of them is the row, head,
+// sequence); dimension 0 is the contiguous DH. 0, or MAP_REFUSED plus the
+// CUresult of cuTensorMapEncodeTiled.
+constexpr int MAP_REFUSED = 100000;
+
+int make_map4(CUtensorMap* map, const void* ptr, int dh, const long long* spec) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)spec[0], (cuuint64_t)spec[1],
+                              (cuuint64_t)spec[2]};
+  const cuuint64_t strides[3] = {(cuuint64_t)spec[3], (cuuint64_t)spec[4], (cuuint64_t)spec[5]};
+  cuuint32_t box[4] = {(cuuint32_t)dh, 1, 1, 1};
+  const int row_slot = (int)(spec[6] & 15);
+  if (row_slot < 1 || row_slot > 3) return (int)cudaErrorInvalidValue;
+  box[row_slot] = TILE;
+  const cuuint32_t estrides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, estrides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_REFUSED + (int)r;
+}
+
+template <int DH>
+cudaError_t launch_bwd(const CUtensorMap (&m)[4], const MainArgs& a, int heads,
+                       cudaStream_t stream) {
+  constexpr int smem = Smem<DH>::TOTAL;
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(dq_kernel<DH>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((a.L + TILE - 1) / TILE, heads);
+  dkdv_kernel<DH><<<grid, CTA_THREADS, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kdq<<<grid, THREADS, tiles, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.D, a.dq, a.cos_t, a.sin_t, a.l, a.p, a.sq, a.sk,
-      a.sv, a.sdo, a.sdq, a.scale);
+  dq_kernel<DH><<<grid, CTA_THREADS, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
+}
+
+template <int DH, bool ROPE>
+cudaError_t launch_prep(const bf16* q, const bf16* k, const bf16* o, const bf16* dout,
+                        const float* lse, bf16* qr, bf16* kr, float* lse2, float* D,
+                        const float* cos_t, const float* sin_t, int n, int l, int lpad, int p,
+                        const long long* s, cudaStream_t stream) {
+  const long long rows = (long long)n * lpad;
+  bwd_prep_kernel<DH, ROPE><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
+      q, k, o, dout, lse, qr, kr, lse2, D, cos_t, sin_t, n, l, lpad, p, {s[0], s[1], s[2]},
+      {s[3], s[4], s[5]}, {s[6], s[7], s[8]}, {s[9], s[10], s[11]});
+  return cudaGetLastError();
+}
+
+int prep(const void* q, const void* k, const void* o, const void* dout, const void* lse, void* qr,
+         void* kr, void* scratch, const void* cos_t, const void* sin_t, int n, int l, int p,
+         int dh, int lpad, const long long* strides, cudaStream_t st) {
+  const bf16 *q_ = static_cast<const bf16*>(q), *k_ = static_cast<const bf16*>(k);
+  const bf16 *o_ = static_cast<const bf16*>(o), *d_ = static_cast<const bf16*>(dout);
+  const float* lse_ = static_cast<const float*>(lse);
+  bf16 *qr_ = static_cast<bf16*>(qr), *kr_ = static_cast<bf16*>(kr);
+  float* lse2 = static_cast<float*>(scratch);
+  float* D = lse2 + (long long)n * p * lpad;
+  const float *c = static_cast<const float*>(cos_t), *s = static_cast<const float*>(sin_t);
+  const bool rope = cos_t != nullptr;
+#define PREP(DH, R) \
+  launch_prep<DH, R>(q_, k_, o_, d_, lse_, qr_, kr_, lse2, D, c, s, n, l, lpad, p, strides, st)
+  if (dh == 64) return rope ? PREP(64, true) : PREP(64, false);
+  if (dh == 32) return rope ? PREP(32, true) : PREP(32, false);
+#undef PREP
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. q/k/v/o/dout and the outputs dq/dk/dv are
-// (n, p, l, dh) bf16 views, each given by its (n, p, l) strides in elements
-// (`strides`: 8 x 3, in that order), with a contiguous last dim; lse is the
-// forward's (n, p, l) fp32 log-sum-exp; D is (n, p, l) fp32 scratch.
-// cos_t/sin_t are (l, dh/2) fp32 tables, or null for no RoPE. Launches three
-// kernels on `stream`; returns the first cudaError_t that is not 0, or 0.
-extern "C" int sam3_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const void* lse, void* D, void* dq, void* dk, void* dv, const void* cos_t,
-    const void* sin_t, int n, int l, int p, int dh, const long long* strides,
-    float scale, void* stream) {
-  const long long* s = strides;
-  const BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-                  static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-                  static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-                  static_cast<float*>(D), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                  static_cast<bf16*>(dv), n, l, p,
-                  {s[0], s[1], s[2]}, {s[3], s[4], s[5]}, {s[6], s[7], s[8]},
-                  {s[9], s[10], s[11]}, {s[12], s[13], s[14]}, {s[15], s[16], s[17]},
-                  {s[18], s[19], s[20]}, {s[21], s[22], s[23]}, scale};
+// C entry points, bound with ctypes; every view is (n, p, l, dh) bf16 with
+// a contiguous last dim, given by its (n, p, l) strides in elements.
+//
+// sam3_attention_bwd_prep: the prep pass alone. From q, k, o, dout
+// (`strides`: 4 x 3, in that order) and the forward's (n, p, l) fp32
+// log-sum-exp, write `scratch` (2 x (n p) x lpad fp32: lse * log2(e) and D,
+// padded to lpad, a multiple of 64) and, when cos_t/sin_t ((l, dh/2) fp32)
+// are given, the rotated q, k into contiguous qr, kr.
+//
+// sam3_attention_bwd: the whole backward, dq, dk, dv (`strides`: 7 x 3 for
+// q, k, o, dout, dq, dk, dv): the prep pass into qm, km (the rotated
+// scratch with RoPE, else q and k themselves) and `scratch`, then the two
+// main kernels, which read qm, km, v and dout by TMA, each described by 7
+// numbers of `maps` (4 x 8, see make_map4). With cos_t, dq and dk are rotated back. The maps are
+// encoded before the first launch, so the three kernels queue back to back.
+// Both return the first cudaError_t that is not 0 (a map cuTensorMapEncodeTiled
+// refused: 100000 plus its CUresult), or 0.
+extern "C" int sam3_attention_bwd_prep(const void* q, const void* k, const void* o,
+                                       const void* dout, const void* lse, void* qr, void* kr,
+                                       void* scratch, const void* cos_t, const void* sin_t, int n,
+                                       int l, int p, int dh, int lpad, const long long* strides,
+                                       void* stream) {
+  return prep(q, k, o, dout, lse, qr, kr, scratch, cos_t, sin_t, n, l, p, dh, lpad, strides,
+              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sam3_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                  const void* dout, const void* lse, void* qm, void* km,
+                                  void* scratch, void* dq, void* dk, void* dv, const void* cos_t,
+                                  const void* sin_t, int n, int l, int p, int dh, int lpad,
+                                  const long long* strides, const long long* maps,
+                                  float scale, void* stream) {
+  if (dh != 64 && dh != 32) return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];
+  const void* srcs[4] = {qm, km, v, dout};
+  MainArgs a;
+  const cudaError_t bound = bind_primary_context();
+  if (bound != cudaSuccess) return (int)bound;
+  for (int i = 0; i < 4; ++i) {
+    const int err = make_map4(&m[i], srcs[i], dh, maps + 8 * i);
+    if (err) return err;
+    a.slots[i] = (int)maps[8 * i + 6];
+  }
+  const long long* s = strides + 12;  // dq, dk, dv
+  a.lse2 = static_cast<const float*>(scratch);
+  a.D = a.lse2 + (long long)n * p * lpad;
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.cos_t = static_cast<const float*>(cos_t);
+  a.sin_t = static_cast<const float*>(sin_t);
+  a.sdq = {s[0], s[1], s[2]};
+  a.sdk = {s[3], s[4], s[5]};
+  a.sdv = {s[6], s[7], s[8]};
+  a.L = l;
+  a.lpad = lpad;
+  a.P = p;
+  a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool rope = cos_t != nullptr;
-  if (dh == 64) return rope ? launch_bwd<64, true>(a, st) : launch_bwd<64, false>(a, st);
-  if (dh == 32) return rope ? launch_bwd<32, true>(a, st) : launch_bwd<32, false>(a, st);
-  return (int)cudaErrorInvalidValue;
+  const int err = prep(q, k, o, dout, lse, qm, km, scratch, cos_t, sin_t, n, l, p, dh, lpad,
+                       strides, st);
+  if (err) return err;
+  return dh == 64 ? launch_bwd<64>(m, a, n * p, st) : launch_bwd<32>(m, a, n * p, st);
 }

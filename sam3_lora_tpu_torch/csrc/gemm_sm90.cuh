@@ -35,14 +35,15 @@
 //
 // The wgmma descriptors match the TMA box: 128-byte rows, 128-byte swizzle,
 // 8-row groups 1024 bytes apart (SBO), stage bases 1024-byte aligned; a
-// 32-byte K step advances the start address by 2 (16-byte units).
+// 32-byte K step advances the start address by 2 (16-byte units). The
+// barriers, TMA, descriptors and register controls are sm90.cuh's, shared
+// with the attention backward.
 
 #pragma once
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace sam3 {
 namespace sm90 {
@@ -57,140 +58,6 @@ constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int C_BYTES = BM * BN * 2;  // the bf16 output tile: 2 x 4 boxes of 64 x 64
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + C_BYTES + 2 * STAGES * 8 + 1024;  // + barriers, alignment
 constexpr int THREADS = 3 * 128;
-constexpr long long WAIT_LIMIT = 1ll << 32;  // clock cycles (~2 s): a lost arrival traps
-
-__device__ __forceinline__ uint32_t cvta_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarrier
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`. A wait
-// that outlasts WAIT_LIMIT means an arrival was lost: trap (the launch fails
-// with an error) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > WAIT_LIMIT) __trap();
-}
-
-// ---- TMA
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Until the committed bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// Until the committed bulk stores are complete.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Make this thread's shared-memory writes visible to the async proxy (TMA).
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A barrier of the 128 threads of one warpgroup (ids 1.., 0 is __syncthreads).
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-// ---- wgmma
-
-// Shared-memory matrix descriptor of a K-major tile with 128-byte rows in
-// the 128-byte swizzle: start address >> 4 (bits 0-13), LBO 1 (unused for
-// swizzled K-major), SBO 1024 B >> 4 (bits 32-45), layout SWIZZLE_128B (1 in
-// bits 62-63).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads of the sums across a wgmma wait: the
-// asm statements that issue wgmma write the registers as far as it knows.
-__device__ __forceinline__ void fence_regs(int (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int R>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-template <int R>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
 
 // d (64 x 256 per warpgroup) += A (64 x 32 bytes) . B (256 x 32 bytes)^T;
 // scale_d == 0 overwrites d. Thread t of the warpgroup holds, for j in
@@ -396,31 +263,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 
 // ---- host side
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver-API function, through the runtime's entry
-// point query (no link against libcuda).
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = []() -> EncodeTiled {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
-  }();
-  return fn;
-}
-
 // The TMA map of a row-major (rows, cols) operand with `elem`-byte elements,
 // cut into boxes of 128 bytes of a row by box_rows rows, 128-byte swizzle;
 // reads out of range fill zeros. 0, or a cudaError_t.
@@ -446,7 +288,8 @@ template <class Op>
 int launch(const void* a, const void* b, void* out, const typename Op::Params& p, int m, int n,
            int k, cudaStream_t stream) {
   CUtensorMap ta, tb, tc;
-  int err = make_map(&ta, a, m, k, Op::ELEM, BM);
+  int err = (int)bind_primary_context();
+  if (!err) err = make_map(&ta, a, m, k, Op::ELEM, BM);
   if (!err) err = make_map(&tb, b, n, k, Op::ELEM, BN);
   if (!err) err = make_map(&tc, out, m, n, 2, 64);
   if (err) return err;

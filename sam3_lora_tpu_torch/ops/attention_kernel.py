@@ -16,6 +16,13 @@ views; the ``*_packed_*`` functions take (N, L, P*dh) operands. The entry
 points use the plain versions only for CPU tensors; ``chip_smoke.py`` holds
 the kernels against them on the card.
 
+The backward runs three kernels: a prep pass (``attention_bwd_prep_cuda``,
+plain version ``attention_bwd_prep_plain``: D = rowsum(dO o O), and with RoPE
+q and k rotated once into contiguous scratch), then the dK/dV and dQ passes,
+which read q (or its rotation), k, v and dO through 4-D TMA maps. The maps'
+layout and the checks TMA needs (``tma_map``, ``bwd_maps``) are plain Python
+that runs on any device, so the CPU tests reach them.
+
 Gradients: when an operand requires grad, ``attend`` and ``attend_qkv`` go
 through a ``torch.autograd.Function`` whose forward also writes the fp32 row
 log-sum-exp and whose backward launches the backward kernel (or, on the CPU,
@@ -48,7 +55,10 @@ def _library() -> ctypes.CDLL:
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.sam3_attention_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [strides, ctypes.c_float, ptr]
     lib.sam3_attention_fwd.restype = i32
-    lib.sam3_attention_bwd.argtypes = [ptr] * 12 + [i32] * 4 + [strides, ctypes.c_float, ptr]
+    lib.sam3_attention_bwd_prep.argtypes = [ptr] * 10 + [i32] * 5 + [strides, ptr]
+    lib.sam3_attention_bwd_prep.restype = i32
+    lib.sam3_attention_bwd.argtypes = [ptr] * 14 + [i32] * 5 + [strides, strides, ctypes.c_float,
+                                                                ptr]
     lib.sam3_attention_bwd.restype = i32
     return lib
 
@@ -63,6 +73,12 @@ def _strides(*views: torch.Tensor):
 def _check_operand(name: str, t: torch.Tensor, shape) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    _check_layout(name, t, shape)
+
+
+def _check_layout(name: str, t: torch.Tensor, shape) -> None:
+    """Dtype, shape, strides and alignment of a kernel operand, on any
+    device."""
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -125,32 +141,135 @@ def attention_cuda(q, k, v, scale: float, cos=None, sin=None, o=None, with_lse: 
     return (o, lse) if with_lse else o
 
 
-def attention_bwd_cuda(q, k, v, o, lse, do, scale: float, cos=None, sin=None, out=None):
-    """Launch the backward kernels on (N, P, L, dh) views: (dq, dk, dv) of the
-    forward's output ``o`` (with its log-sum-exp ``lse``) for the upstream
-    gradient ``do``, with respect to the unrotated q and k. ``out`` may give
-    the three outputs as views (the column blocks of one packed-qkv
-    gradient); otherwise they are new contiguous tensors."""
-    n, p, l, _ = _check_call(q, k, v, cos, sin)
+_TILE = 64  # rows of a TMA box and of a CTA; the prep pads lse and D to whole tiles
+_MAP_REFUSED = 100000  # sam3_attention_bwd's code for a refused TMA map, + CUresult
+
+
+def tma_map(name: str, t: torch.Tensor):
+    """The 4-D TMA map of an (N, P, L, dh) bf16 view as
+    ``sam3_attention_bwd`` takes it: [extents of dimensions 1..3, their
+    strides in bytes, slots, 0]. Dimension 0 is the contiguous dh;
+    dimensions 1..3 are the view's L, P and N ordered by increasing stride
+    (a dimension of extent 1 is never stepped and goes last, with the view's
+    span as its stride); ``slots`` is the position of L | P << 4 | N << 8.
+    A box is (dh, 64 rows). Raises ValueError for a view TMA cannot read: a
+    last dim that is not contiguous, a base not 16-byte aligned, a stride
+    that is not a positive multiple of 16 bytes."""
+    if t.dim() != 4 or t.shape[3] not in SUPPORTED_HEAD_DIMS or t.dtype != torch.bfloat16:
+        raise ValueError(f"{name} must be an (N, P, L, dh) bfloat16 view with dh in "
+                         f"{SUPPORTED_HEAD_DIMS}, got {t.dtype} {tuple(t.shape)}")
+    n, p, l, dh = t.shape
+    sn, sp, sl, sd = t.stride()
+    span = dh + sum((e - 1) * st for e, st in ((n, sn), (p, sp), (l, sl)))
+    span = -(-span // 8) * 8
+    dims = [(st if e > 1 else span, e, which)
+            for which, (e, st) in enumerate(((l, sl), (p, sp), (n, sn)))]
+    if sd != 1 or t.data_ptr() % 16 or any(st <= 0 or st % 8 for st, _, _ in dims):
+        raise ValueError(f"{name} is not a TMA view: it needs a contiguous last dim, a 16-byte "
+                         f"aligned base and strides of 16-byte multiples (aligned rows), got "
+                         f"strides {t.stride()}")
+    dims.sort(key=lambda d: (d[0], d[2]))
+    slot = {which: i + 1 for i, (_, _, which) in enumerate(dims)}
+    return ([e for _, e, _ in dims] + [st * t.element_size() for st, _, _ in dims]
+            + [slot[0] | slot[1] << 4 | slot[2] << 8, 0])
+
+
+def bwd_maps(qm, km, v, do):
+    """The four maps of the backward's main kernels (q or its rotation, k or
+    its rotation, v, dO), as the C array ``sam3_attention_bwd`` takes."""
+    flat = [x for name, t in (("q", qm), ("k", km), ("v", v), ("do", do)) for x in tma_map(name, t)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def attention_bwd_prep_plain(q, k, o, do, cos=None, sin=None):
+    """Plain PyTorch version of the backward's prep kernel on (N, P, L, dh)
+    views: (q_rot, k_rot, D). q and k rotated by the tables
+    (``apply_rope_half``: fp32, rounded to q's dtype), or q and k themselves
+    without tables; D = rowsum(dO o O) in fp32, summed in the kernel's order
+    (each lane of dh/8 adds its 8 exact bf16 products in sequence, then a
+    butterfly over the lanes), so the kernel gives the same bits."""
+    if cos is not None:
+        q, k = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+    prod = (do.float() * o.float()).unflatten(-1, (-1, 8))  # (N, P, L, dh/8, 8)
+    acc = prod[..., 0]
+    for j in range(1, 8):
+        acc = acc + prod[..., j]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return q, k, acc[..., 0]
+
+
+def _prep_buffers(q, k, cos):
+    """The main kernels' q and k (new contiguous tensors for the rotation
+    with RoPE, else q and k themselves) and the (2, N*P, lpad) fp32 scratch
+    of lse * log2(e) and D, padded to whole tiles."""
+    n, p, l, dh = q.shape
+    lpad = -(-l // _TILE) * _TILE
+    scratch = torch.empty((2, n * p, lpad), dtype=torch.float32, device=q.device)
+    if cos is None:
+        return q, k, scratch
+    qm, km = (torch.empty((n, p, l, dh), dtype=q.dtype, device=q.device) for _ in range(2))
+    return qm, km, scratch
+
+
+def _check_bwd_call(q, k, v, o, lse, do, cos, sin):
+    """``_check_call`` (``v`` None: q and k alone) and the backward's own
+    operands; returns dO, copied when its view is not one the kernels read."""
+    n, p, l, _ = _check_call(q, k, k if v is None else v, cos, sin)
     if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
         do = do.contiguous()
     _check_operand("o", o, q.shape)
     _check_operand("do", do, q.shape)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (n, p, l) or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 ({n}, {p}, {l})")
+    return do
+
+
+def attention_bwd_prep_cuda(q, k, o, do, lse, cos=None, sin=None):
+    """Launch the backward's prep kernel alone on (N, P, L, dh) CUDA views
+    and the forward's (N, P, L) log-sum-exp: (q_rot, k_rot, D) as
+    ``attention_bwd_prep_plain`` gives them."""
+    do = _check_bwd_call(q, k, None, o, lse, do, cos, sin)
+    n, p, l, dh = q.shape
+    qm, km, scratch = _prep_buffers(q, k, cos)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _library().sam3_attention_bwd_prep(
+        q.data_ptr(), k.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), qm.data_ptr(),
+        km.data_ptr(), scratch.data_ptr(), _ptr(cos), _ptr(sin), n, l, p, dh, scratch.shape[2],
+        _strides(q, k, o, do), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"sam3_attention_bwd_prep launch failed: cudaError {err}")
+    return qm, km, scratch[1].view(n, p, -1)[..., :l]
+
+
+def attention_bwd_cuda(q, k, v, o, lse, do, scale: float, cos=None, sin=None, out=None):
+    """Launch the backward kernels on (N, P, L, dh) views: (dq, dk, dv) of the
+    forward's output ``o`` (with its log-sum-exp ``lse``) for the upstream
+    gradient ``do``, with respect to the unrotated q and k. ``out`` may give
+    the three outputs as views (the column blocks of one packed-qkv
+    gradient); otherwise they are new contiguous tensors. Raises for a view
+    the kernels do not read (``tma_map``)."""
+    do = _check_bwd_call(q, k, v, o, lse, do, cos, sin)
+    n, p, l, dh = q.shape
     if out is None:
         out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     for name, t in zip(("dq", "dk", "dv"), out):
         _check_operand(name, t, q.shape)
     dq, dk, dv = out
-    scratch = torch.empty((n, p, l), dtype=torch.float32, device=q.device)  # rowsum(dO o O)
+    qm, km, scratch = _prep_buffers(q, k, cos)
+    maps = bwd_maps(qm, km, v, do)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().sam3_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(cos), _ptr(sin), n, l, p, q.shape[3], _strides(q, k, v, o, do, dq, dk, dv),
-        float(scale), stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        qm.data_ptr(), km.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _ptr(cos), _ptr(sin), n, l, p, dh, scratch.shape[2],
+        _strides(q, k, o, do, dq, dk, dv), maps, float(scale), stream,
     )
+    if err >= _MAP_REFUSED:
+        raise RuntimeError(f"sam3_attention_bwd: cuTensorMapEncodeTiled refused a TMA map, "
+                           f"CUresult {err - _MAP_REFUSED}; maps {list(maps)}")
     if err != 0:
         raise RuntimeError(f"sam3_attention_bwd launch failed: cudaError {err}")
     return dq, dk, dv

@@ -1,6 +1,7 @@
 """A/B of checkouts of the port on one card: the int8 tier's K4 and K6
-against their PyTorch yardsticks at fc1, and three training phases of each
-checkout, each with one profiled step.
+against their PyTorch yardsticks at fc1, the attention backward at bench.py's
+batch against scaled_dot_product_attention's backward, and three training
+phases of each checkout, each with one profiled step.
 
     python sam3_lora_tpu_torch/probes/step_ab.py --trees _proof/parent . . _proof/parent --out ab.jsonl
 
@@ -15,11 +16,18 @@ name), builds its own kernels from its own sources and trains with its own
   wrappers, ``torch._int_mm`` on the same int8 operands, bf16
   ``torch.matmul`` of x against the dequantized weight and
   ``torch.matmul(dy, w_deq)``; K4 held bit for bit to its plain version;
+* ``bwd``: the tree's ``attention_packed_bwd_cuda`` at bench.py's batch 8:
+  K1-bwd (72 windows x 16 heads x 576 x 64, RoPE), K2-bwd (8 x 16 x 5184 x
+  64, RoPE) and K3-bwd (8 x 8 x 5184 x 32): its median CUDA-event ms, the
+  device ms of its kernels in one profiled call (by kernel), and the
+  backward of one ``scaled_dot_product_attention`` call on the same (rotated)
+  operands, with dv's largest difference from the library's relative to
+  max |dv| (dq and dk are taken with respect to other inputs under RoPE);
 * ``train``, ``train_int8``, ``bench``: chip_smoke's train phase at batch 4
   (bf16; the int8 tier with ``GEMM_BWD_KERNEL`` on) and bench-train at batch
   8 (``bench_model_config``, ``bench_lora_config``): four steps (the first
-  is the warm-up) and the profile of a fifth: device ms by kernel, K4's and
-  K6's kernels' sums, the busy share.
+  is the warm-up) and the profile of a fifth: device ms by kernel, K4's,
+  K6's and the attention backward's kernels' sums, the busy share.
 
 Seeds are fixed, so every tree sees the same operands and samples.
 """
@@ -39,6 +47,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # mainloop and its first pass, or the mma.sync kernels of the first design
 K4_KERNELS = ("S8Scaled", "quant_rows_kernel", "int8_gemm_kernel<false>")
 K6_KERNELS = ("Bf16Plain", "dequant_t_kernel", "bf16_gemm_nt_kernel")
+# the attention backward's kernels: the prep pass and the TMA/wgmma passes,
+# or the first design's row dot and mma.sync passes
+BWD_KERNELS = ("bwd_prep_kernel", "rowdot_kernel", "dkdv_kernel", "dq_kernel")
+BWD_CASES = (("K1-bwd", 72, 576, 16, 64, True), ("K2-bwd", 8, 5184, 16, 64, True),
+             ("K3-bwd", 8, 5184, 8, 32, False))
 STEPS = 4
 TOP = 15
 
@@ -71,6 +84,59 @@ def gemm_rows(torch, gemm_int8, quant, median_ms):
                      "dy_w_deq_ms": median_ms(lambda: torch.matmul(dy, w_deq))})
         print(json.dumps(rows[-1]), flush=True)
         del x, wq, ws, dy, w_deq, xq
+        torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_sums(prof: dict, names) -> dict:
+    """Device ms and launches of a profile's kernels by which of ``names``
+    their name holds."""
+    out = {}
+    for name, (ms, n) in prof["kernels"].items():
+        for key in names:
+            if key in name:
+                ms0, n0 = out.get(key, (0.0, 0))
+                out[key] = (ms0 + ms, n0 + n)
+    return out
+
+
+def bwd_rows(torch, ak, median_ms, profile_step):
+    """The backward at bench.py's batch beside the library's (``bwd`` above)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for name, n, l, p, dh, rope in BWD_CASES:
+        qkv = torch.randn(n, l, 3 * p * dh, generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv.chunk(3, -1)
+        cos = sin = None
+        if rope:
+            ang = torch.rand(l, dh // 2, generator=g, device="cuda") * 6
+            cos, sin = ang.cos(), ang.sin()
+        scale = dh ** -0.5
+        o, lse = ak.attention_packed_cuda(q, k, v, scale, dh, cos, sin, with_lse=True)
+        do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
+
+        def call():
+            return ak.attention_packed_bwd_cuda(q, k, v, o, lse, do, scale, dh, cos, sin)
+
+        grads = call()
+        ms = median_ms(call)
+        split = kernel_sums(profile_step(call), BWD_KERNELS)
+        qh, kh, vh, doh = (ak._heads(t, dh) for t in (q, k, v, do))
+        if rope:
+            qh, kh = (ak.apply_rope_half(t, cos, sin) for t in (qh, kh))
+        qh, kh, vh = (t.contiguous().requires_grad_(True) for t in (qh, kh, vh))
+        out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        doh = doh.contiguous()
+        lib = torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+        dv_err = ((ak._heads(grads[2], dh).float() - lib[2].float()).abs().max()
+                  / lib[2].float().abs().max()).item()
+        sdpa_ms = median_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True))
+        rows.append({"row": name, "shape": [n, p, l, dh], "rope": rope, "ms": ms,
+                     "device_ms": {k: v[0] for k, v in split.items()},
+                     "device_total_ms": sum(v[0] for v in split.values()),
+                     "sdpa_bwd_ms": sdpa_ms, "dv_rel_diff_vs_sdpa": dv_err})
+        print(json.dumps(rows[-1]), flush=True)
+        del qkv, q, k, v, o, lse, do, grads, qh, kh, vh, out, doh, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -111,9 +177,11 @@ def profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch: int) -> dict
         return sum(ms for ms, _ in hits), sum(n for _, n in hits)
 
     (k4_ms, k4_n), (k6_ms, k6_n) = total(K4_KERNELS), total(K6_KERNELS)
+    bwd = kernel_sums(prof, BWD_KERNELS)
     res = {"step_s": times, "peak_gib": peak / 2 ** 30, "device_ms": prof["device_ms"],
            "window_ms": prof["window_ms"], "busy_share": prof["busy_share"],
            "k4_ms": k4_ms, "k4_launches": k4_n, "k6_ms": k6_ms, "k6_launches": k6_n,
+           "bwd_ms": sum(v[0] for v in bwd.values()), "bwd_by_kernel": bwd,
            "top": [(name[:120], ms, n) for name, (ms, n) in list(prof["kernels"].items())[:TOP]]}
     print(json.dumps({k: v for k, v in res.items() if k != "top"}), flush=True)
     return res
@@ -135,8 +203,11 @@ def worker(tree: str, out: str) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     _cuda.build()
-    res = {"tree": tree, "device": smi, "gemm": gemm_rows(torch, gemm_int8, quant, median_ms)}
+    from sam3_lora_tpu_torch.ops import attention_kernel
+
     profile_step = _profile_step()
+    res = {"tree": tree, "device": smi, "gemm": gemm_rows(torch, gemm_int8, quant, median_ms),
+           "bwd": bwd_rows(torch, attention_kernel, median_ms, profile_step)}
     for phase, cfg, lora, batch in (
             ("train", chip_smoke.model_config(False), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
             ("train_int8", chip_smoke.model_config(True), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),

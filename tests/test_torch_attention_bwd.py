@@ -11,7 +11,14 @@ CPU, where the port's autograd Function runs the plain backward
 * ``attention_packed_bwd_plain`` against ``torch.autograd`` of
   ``attention_packed_plain`` (fp32, 1e-5 relative), at ragged L;
 * the packed-qkv Function (one gradient tensor for the ViT's qkv output)
-  against the three-operand Function (bitwise: the same formulas).
+  against the three-operand Function (bitwise: the same formulas);
+* the card's prep pass in its plain version (``attention_bwd_prep_plain``):
+  q and k rotated, bit for bit the port's ``apply_rope_half`` in bf16 and
+  within one bf16 ulp of the JAX one (XLA may fuse a multiply-add), and D
+  within 1e-6 (relative) of the fp32 rowsum (the kernel's summation order);
+* the TMA maps of the main kernels (``tma_map``): every operand layout
+  chip_smoke.py hands the backward is admitted with the extents, byte
+  strides and slots it has, and views TMA cannot read raise.
 """
 
 import jax
@@ -21,9 +28,13 @@ import pytest
 import torch
 
 from sam3_lora_tpu.ops import long_attention as la
+from sam3_lora_tpu.ops import rope as jax_rope
 from sam3_lora_tpu.ops import window_attention as wa
+from sam3_lora_tpu_torch.ops import attention_kernel as ak
+from sam3_lora_tpu_torch.ops import rope as port_rope
 from sam3_lora_tpu_torch.ops.attention_kernel import (
     attend_qkv,
+    attention_bwd_prep_plain,
     attention_packed_bwd_plain,
     attention_packed_plain,
 )
@@ -153,3 +164,103 @@ def test_no_grad_path_counts_and_builds_no_graph():
     # CPU tensors run the plain versions: no kernel launch is counted
     assert (window_attention_rope_packed.launches, window_attention_rope_packed.bwd_launches) == (fwd, bwd)
     assert torch.isfinite(qg.grad).all() and qg.grad.abs().max() > 0
+
+
+def _bf16_heads(rng, n, p, l, dh):
+    x = rng.standard_normal((n, p, l, dh)).astype(np.float32)
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_prep_rotation_equals_apply_rope_half(dh):
+    rng = np.random.RandomState(dh)
+    q, k, o, do = (_bf16_heads(rng, 2, 3, 37, dh) for _ in range(4))
+    ang = compute_axial_freqs(dh, 37, 1, scale_pos=1.0 / 3.0).astype(np.float32)
+    cos, sin = torch.from_numpy(np.cos(ang)), torch.from_numpy(np.sin(ang))
+    q_rot, k_rot, _ = attention_bwd_prep_plain(q, k, o, do, cos, sin)
+    assert q_rot.dtype == k_rot.dtype == torch.bfloat16
+    assert torch.equal(q_rot, port_rope.apply_rope_half(q, cos, sin))
+    assert torch.equal(k_rot, port_rope.apply_rope_half(k, cos, sin))
+    # the JAX reference on the same bf16 values: within one bf16 ulp
+    for got, x in ((q_rot, q), (k_rot, k)):
+        xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        ref = np.asarray(jax_rope.apply_rope_half(xj, jnp.asarray(cos.numpy()),
+                                                  jnp.asarray(sin.numpy())), np.float32)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert (np.abs(got.float().numpy() - ref) <= ulp).all()
+    # without tables q and k pass through
+    q2, k2, _ = attention_bwd_prep_plain(q, k, o, do)
+    assert q2 is q and k2 is k
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_prep_rowsum_matches_fp32(dh):
+    rng = np.random.RandomState(7 + dh)
+    q, k, o, do = (_bf16_heads(rng, 2, 4, 41, dh) for _ in range(4))
+    _, _, d = attention_bwd_prep_plain(q, k, o, do)
+    ref = (do.double() * o.double()).sum(-1)
+    assert d.dtype == torch.float32 and d.shape == (2, 4, 41)
+    assert (d.double() - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+def _layouts():
+    """(name, (N, P, L, dh) view) of every operand layout chip_smoke.py hands
+    the backward, at L = 37: the packed qkv column blocks (K1, K2), the
+    encoder's (N, L, 256) at dh 32 (K3), K1''s head pairs, the W-g strided
+    views of the qkv output, W-p's pair views of them, a head-major
+    contiguous tensor (the rotated scratch) and W-qkv's column blocks."""
+    n, l, heads, dh = 2, 37, 4, 64
+    qkv = torch.zeros(n, l, 3 * heads * dh, dtype=torch.bfloat16)
+    cols = qkv.chunk(3, -1)
+    views = [("packed_q", ak._heads(cols[0], dh)), ("packed_v", ak._heads(cols[2], dh)),
+             ("encoder", ak._heads(torch.zeros(n, l, 256, dtype=torch.bfloat16), 32))]
+    pairs = cols[1].reshape(n, l, heads // 2, 2 * dh).transpose(1, 2).reshape(-1, l, 2 * dh)
+    views.append(("k1_pairs", ak._heads(pairs.contiguous(), dh)))
+    grouped = qkv.reshape(n, l, 3, heads, dh).permute(2, 0, 3, 1, 4).unbind(0)
+    views += [("w_g", grouped[0]), ("w_p", grouped[1].reshape(n * heads // 2, 2, l, dh)),
+              ("contiguous", torch.zeros(n, heads, l, dh, dtype=torch.bfloat16)),
+              ("w_qkv", ak._heads(qkv[..., heads * dh:2 * heads * dh], dh))]
+    return views
+
+
+@pytest.mark.parametrize("name,view", _layouts(), ids=[n for n, _ in _layouts()])
+def test_tma_map_admits_every_main_path_layout(name, view):
+    ak._check_layout(name, view, view.shape)
+    spec = ak.tma_map(name, view)
+    extents, strides, slots = spec[:3], spec[3:6], spec[6]
+    assert len(spec) == 8 and spec[7] == 0 and strides == sorted(strides)
+    where = {"l": slots & 15, "p": (slots >> 4) & 15, "n": (slots >> 8) & 15}
+    assert sorted(where.values()) == [1, 2, 3]
+    n, p, l, dh = view.shape
+    for dim, size, stride in (("n", n, view.stride(0)), ("p", p, view.stride(1)),
+                              ("l", l, view.stride(2))):
+        assert extents[where[dim] - 1] == size
+        if size > 1:
+            assert strides[where[dim] - 1] == 2 * stride
+    assert all(s % 16 == 0 and s > 0 for s in strides)
+    assert len(ak.bwd_maps(view, view, view, view)) == 32
+
+
+def test_tma_map_orders_dims_by_stride():
+    qkv = torch.zeros(2, 37, 3 * 128, dtype=torch.bfloat16)
+    packed = ak._heads(qkv[..., :128], 64)  # strides (n, p, l) = (14208, 64, 384)
+    assert ak.tma_map("q", packed) == [2, 37, 2, 128, 768, 28416, 2 | 1 << 4 | 3 << 8, 0]
+    head_major = torch.zeros(2, 3, 37, 32, dtype=torch.bfloat16)  # (3552, 1184, 32)
+    assert ak.tma_map("q", head_major) == [37, 3, 2, 64, 2368, 7104, 1 | 2 << 4 | 3 << 8, 0]
+    one_seq = torch.zeros(1, 2, 37, 64, dtype=torch.bfloat16)  # N = 1 goes last
+    assert ak.tma_map("q", one_seq)[6] == 1 | 2 << 4 | 3 << 8
+
+
+def test_tma_map_refuses_views_tma_cannot_read():
+    qkv = torch.zeros(2, 37, 3 * 128 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):  # base one element off 16 bytes
+        ak.tma_map("q", ak._heads(qkv[..., 1:129], 64))
+    odd = torch.zeros(2, 37, 132, dtype=torch.bfloat16)[..., :128]  # rows of 264 bytes
+    with pytest.raises(ValueError, match="TMA"):
+        ak.tma_map("q", ak._heads(odd, 64))
+    with pytest.raises(ValueError, match="TMA"):  # a strided last dim
+        ak.tma_map("q", torch.zeros(2, 2, 37, 128, dtype=torch.bfloat16)[..., ::2])
+    with pytest.raises(ValueError, match="dh"):
+        ak.tma_map("q", torch.zeros(2, 2, 37, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        ak.tma_map("q", torch.zeros(2, 2, 37, 64))

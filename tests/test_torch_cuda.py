@@ -6,7 +6,9 @@ input checks; the int8 tier's K4/K5/K6 (``ops/gemm_int8.py``) against their
 plain versions at the model's K x N and at every shape of
 ``chip_smoke.gemm_cases()``, K4's and K6's first passes (the row
 quantization, the dequantize-transpose) against theirs, the counters, the
-routing of the autograd Functions and the wrappers' checks. These need an NVIDIA GPU with
+routing of the autograd Functions and the wrappers' checks. The backward
+is also held deterministic (two launches, equal bits) and its prep pass
+bit for bit equal to its plain version. These need an NVIDIA GPU with
 nvcc and skip elsewhere; on a machine with a GPU run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance: attention max |kernel - plain| <= 2e-2 * max |plain|, as in
@@ -31,6 +33,8 @@ from sam3_lora_tpu_torch.ops.attention import dot_product_attention
 from sam3_lora_tpu_torch.ops.attention_kernel import (
     attend_qkv,
     attention_bwd_plain,
+    attention_bwd_prep_cuda,
+    attention_bwd_prep_plain,
     attention_packed_bwd_cuda,
     attention_packed_bwd_plain,
     attention_packed_cuda,
@@ -133,6 +137,52 @@ def test_backward_kernels_match_plain(gen, l, p, dh, rope):
     else:
         for g, r in zip(grads, refs):
             _assert_matches(g, r)
+
+
+BWD_CASES = [(2, 64, True), (2, 64, False), (4, 32, True), (8, 32, False)]
+
+
+@pytest.mark.parametrize("l", [37, 576, 1000])
+@pytest.mark.parametrize("p,dh,rope", BWD_CASES)
+def test_backward_kernels_are_deterministic(gen, l, p, dh, rope):
+    q, k, v = _qkv(gen, 2, l, p * dh)
+    cos, sin = _tables(l, dh) if rope else (None, None)
+    o, lse = attention_packed_cuda(q, k, v, dh ** -0.5, dh, cos, sin, with_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    first = attention_packed_bwd_cuda(q, k, v, o, lse, do, dh ** -0.5, dh, cos, sin)
+    second = attention_packed_bwd_cuda(q, k, v, o, lse, do, dh ** -0.5, dh, cos, sin)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("l", [1, 37, 576])
+@pytest.mark.parametrize("p,dh,rope", BWD_CASES)
+def test_backward_prep_kernel_equals_plain(gen, l, p, dh, rope):
+    views = [attention_kernel._heads(t, dh) for t in _qkv(gen, 2, l, p * dh)]
+    o, do = (attention_kernel._heads(t, dh) for t in _qkv(gen, 2, l, p * dh)[:2])
+    lse = torch.randn(2, p, l, generator=gen, device="cuda")
+    cos, sin = _tables(l, dh) if rope else (None, None)
+    got = attention_bwd_prep_cuda(views[0], views[1], o, do, lse, cos, sin)
+    torch.cuda.synchronize()
+    ref = attention_bwd_prep_plain(views[0], views[1], o, do, cos, sin)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_backward_wrapper_raises_on_refused_views(gen):
+    q, k, v = (t.contiguous() for t in _qkv(gen, 1, 40, 128))
+    o, lse = attention_packed_cuda(q, k, v, 0.125, 64, with_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    wide = torch.randn(1, 40, 136, generator=gen, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):  # base one element off 16 bytes
+        attention_packed_bwd_cuda(wide[..., 1:129], k, v, o, lse, do, 0.125, 64)
+    odd = torch.randn(1, 40, 132, generator=gen, device="cuda").to(torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="aligned"):  # rows of 264 bytes
+        attention_packed_bwd_cuda(q, odd, v, o, lse, do, 0.125, 64)
+    with pytest.raises(ValueError, match="aligned"):  # an output TMA-free but misaligned
+        attention_packed_bwd_cuda(q, k, v, o, lse, do, 0.125, 64, out=(odd, q.clone(), q.clone()))
+    with pytest.raises(ValueError, match="lse"):
+        attention_packed_bwd_cuda(q, k, v, o, lse.transpose(1, 2), do, 0.125, 64)
 
 
 @pytest.mark.parametrize("which", ["window", "long_rope", "long"])
