@@ -5,15 +5,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   2. build       - compile csrc/attention_fwd.cu, csrc/attention_bwd.cu,
                    csrc/gemm_int8.cu and csrc/probe_window.cu with nvcc (one
                    process per source, in parallel).
-  3. kernels     - each attention entry point's forward kernel against its
+  3. kernels     - each attention entry point's forward (with RoPE its
+                   rotation pass, then the TMA/wgmma main kernel) against its
                    plain PyTorch version, on the operands the serving path
-                   hands it; the backward kernels (and the forward's
+                   hands it, launched twice for equal bits, with its share
+                   of the bound and SDPA's time; the rotation pass alone bit
+                   for bit against its plain version; the backward kernels (and the forward's
                    log-sum-exp) against attention_packed_bwd_plain on the
                    operands of the training path at batch 4, each also
                    launched twice for equal bits, with its share of the
                    5-product bound and of the 7-product floor; the window
                    routes K1', W-g, W-p and W-qkv (with and without RoPE)
-                   forward at serving's 9 windows and backward at batch 8;
+                   forward at serving's 9 windows (twice, equal bits) and
+                   backward at batch 8;
                    the int8 tier's K4/K6 (each its first pass and the
                    TMA/wgmma mainloop of csrc/gemm_sm90.cuh) and K5 against
                    their plain versions at every ViT shape at M = 5184
@@ -218,10 +222,15 @@ def phase_kernels(g: torch.Generator, n_prompts: int):
     rows, failed = [], []
     for entry, plain, args, replaces in main_path_operands(g, 1, n_prompts):
         out = entry(*args)
+        again = entry(*args)
         torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        if not same:
+            failed.append(f"{entry.__name__}: two launches differ")
         ref = plain(*args)
         err = (out.float() - ref.float()).abs().max().item()
         bound = KERNEL_RTOL * ref.float().abs().max().item()
+        del out, again
         ms = median_ms(lambda: entry(*args))
         plain_ms = median_ms(lambda: plain(*args), reps=5)
         q, k, v, scale, dh, cos, sin = _split(entry, args)
@@ -231,21 +240,50 @@ def phase_kernels(g: torch.Generator, n_prompts: int):
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         del qh, kh, vh
         print(f"kernel {entry.__name__} q{tuple(args[0].shape)} stride{args[0].stride()}: "
-              f"max_abs_err {err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, roofline {bound_ms:.4f} ms "
-              f"({bound_by}), scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+              f"max_abs_err {err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|), two "
+              f"launches equal {same}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, roofline "
+              f"{bound_ms:.4f} ms ({bound_by}; share {bound_ms / ms:.3f}), "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)", flush=True)
         if not err <= bound:
             failed.append(f"{entry.__name__}: max abs err {err:.3e} > {bound:.3e}")
         rows.append({"name": entry.__name__, "route": "cuda", "source": FWD_SOURCE,
                      "replaces": replaces, "launches": 0, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms})
+        if entry is window_attention_rope_packed:
+            rows.append(rope_row(q, k, dh, cos, sin, failed))
     bwd_rows, bwd_failed = phase_backward_kernels(g)
     route_rows, route_failed = phase_window_route_kernels(g)
     gemm_rows, gemm_failed = phase_gemm_kernels(g)
     if failed + bwd_failed + route_failed + gemm_failed:
         raise AssertionError("; ".join(failed + bwd_failed + route_failed + gemm_failed))
     return rows + bwd_rows + route_rows + gemm_rows
+
+
+def rope_row(q, k, dh, cos, sin, failed: list) -> dict:
+    """The forward's rotation pass on K1's operands (packed qkv column
+    views): bit for bit its plain version, timed; its bound is the bytes it
+    must move (q, k and the tables read, their rotation written)."""
+    qh, kh = (attention_kernel._heads(t, dh) for t in (q, k))
+    got = attention_kernel.rope_cuda(qh, kh, cos, sin)
+    torch.cuda.synchronize()
+    refs = attention_kernel.rope_plain(qh, kh, cos, sin)
+    same = all(torch.equal(a, b) for a, b in zip(got, refs))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, refs))
+    if not same:
+        failed.append(f"attention_rope: differs from rope_plain by {err:.3e}")
+    ms = median_ms(lambda: attention_kernel.rope_cuda(qh, kh, cos, sin, *got))
+    plain_ms = median_ms(lambda: attention_kernel.rope_plain(qh, kh, cos, sin), reps=5)
+    nbytes = 4 * qh.numel() * qh.element_size() + 2 * cos.numel() * cos.element_size()
+    bound_ms, bound_by = roofline(0.0, nbytes)
+    print(f"kernel attention_rope q{tuple(qh.shape)} stride{qh.stride()}: bit for bit equal "
+          f"{same} (max_abs_err {err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"roofline {bound_ms:.4f} ms ({bound_by}; share {bound_ms / ms:.3f}), no library "
+          f"call", flush=True)
+    return {"name": "attention_rope", "route": "cuda", "source": FWD_SOURCE,
+            "replaces": "sam3_lora_tpu/ops/window_attention.py:411", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 BWD_REPLACES = {
@@ -406,10 +444,15 @@ def phase_window_route_kernels(g: torch.Generator):
         name = entry.__name__
         op = RouteOperands(g, entry, 1)
         out = entry(*op.args)
+        again = entry(*op.args)
         torch.cuda.synchronize()
+        same = torch.equal(out, again)
+        if not same:
+            failed.append(f"{name}: two launches differ")
         ref = ak.attention_plain(*op.views, op.scale, op.cos, op.sin)
         err = (op.to_views(out).float() - ref.float()).abs().max().item()
         bound = KERNEL_RTOL * ref.float().abs().max().item()
+        del again
         ms = median_ms(lambda: entry(*op.args))
         plain_ms = median_ms(lambda: ak.attention_plain(*op.views, op.scale, op.cos, op.sin), reps=5)
         n, p, l, dh = op.views[0].shape
@@ -419,9 +462,10 @@ def phase_window_route_kernels(g: torch.Generator):
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=op.scale))
         del qh, kh, vh, out, ref
         print(f"kernel {name} q{tuple(op.views[0].shape)} stride{op.views[0].stride()}: "
-              f"max_abs_err {err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, roofline {bound_ms:.4f} ms ({bound_by}), "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms", flush=True)
+              f"max_abs_err {err:.3e} (bound {bound:.3e} = {KERNEL_RTOL} x max|plain|), two "
+              f"launches equal {same}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, roofline "
+              f"{bound_ms:.4f} ms ({bound_by}; share {bound_ms / ms:.3f}), "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)", flush=True)
         if not err <= bound:
             failed.append(f"{name}: max abs err {err:.3e} > {bound:.3e}")
         rows.append({"name": name, "route": "cuda", "source": FWD_SOURCE,
@@ -575,15 +619,25 @@ def reset_counts():
         entry.launches = entry.bwd_launches = 0
     for entry in GEMM_ENTRIES:
         entry.launches = 0
+    attention_kernel.rope_cuda.launches = 0
 
 
 def counts():
     """Every kernel's launches since reset_counts: the attention entries'
-    forward (and backward, as <name>_bwd) and K4/K5/K6."""
+    forward (and backward, as <name>_bwd), the forward's rotation pass
+    (attention_rope) and K4/K5/K6."""
     out = {e.__name__: e.launches for e in ATTENTION}
     out.update({e.__name__ + "_bwd": e.bwd_launches for e in ATTENTION})
+    out["attention_rope"] = attention_kernel.rope_cuda.launches
     out.update({e.__name__: e.launches for e in GEMM_ENTRIES})
     return out
+
+
+def with_rope(want: dict) -> dict:
+    """``want`` with the rotation pass's launches: one per forward of an
+    entry with RoPE."""
+    rope = sum(v for k, v in want.items() if "rope" in k and not k.endswith("_bwd"))
+    return {**want, "attention_rope": rope}
 
 
 def model_config(int8: bool) -> ModelConfig:
@@ -634,9 +688,9 @@ def phase_slice(g: torch.Generator, int8: bool = False):
     cfg = engine.cfg
     n_global = len(cfg.vit_global_blocks)
     expected = dict.fromkeys(launches, 0)
-    expected.update({"window_attention_rope_packed": (cfg.vit_depth - n_global) * n_req,
-                     "long_attention_rope_packed": n_global * n_req,
-                     "long_attention_packed": cfg.enc_layers * n_req})
+    expected.update(with_rope({"window_attention_rope_packed": (cfg.vit_depth - n_global) * n_req,
+                               "long_attention_rope_packed": n_global * n_req,
+                               "long_attention_packed": cfg.enc_layers * n_req}))
     if int8:
         # per request: the adapted qkv/fc1/fc2 of every ViT block take K5;
         # proj and the text encoder's out_proj/c_fc/c_proj take K4
@@ -743,8 +797,10 @@ def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch:
 
 
 def check_launches(tag: str, launches: dict, want: dict) -> None:
+    """The launches equal ``want`` (its forwards' rotation passes added)
+    and nothing else ran."""
     full = dict.fromkeys(launches, 0)
-    full.update(want)
+    full.update(with_rope(want))
     if launches != full:
         raise AssertionError(f"{tag} launches {launches}, expected {full}")
 
@@ -1193,6 +1249,8 @@ def main():
             # small config's training step of its route; W-p with RoPE: its
             # dot_product_attention call, forward and back
             row["launches"] = routes.get(name, 0) + route_bwd.get(name, 0)
+        elif name == "attention_rope":
+            row["launches"] = serve[name]
         elif name in ("int8_gemm_wres", "int8_lora_gemm_wres"):
             row["launches"] = serve8[name] + train8[name] + bench[name]
         elif name == "bf16_gemm_wres_nt":

@@ -2,8 +2,9 @@
 
 Every source under ``csrc/`` (the attention forward and backward kernels,
 the int8 GEMM kernels with their mainloop ``gemm_sm90.cuh``, the Hopper
-primitives ``sm90.cuh`` both GEMM and attention backward share, and the
-window-kernel probes) is compiled with ``nvcc`` for ``sm_90a``, one process
+primitives ``sm90.cuh`` the GEMM and attention kernels share, the attention
+tiles and products ``attention_sm90.cuh`` forward and backward share, and
+the window-kernel probes) is compiled with ``nvcc`` for ``sm_90a``, one process
 per source, all started together, then linked into one shared library with a
 plain C interface. The library lands in ``_build/<hash>/``, keyed on a hash of
 the sources, headers and flags, at first use; it is loaded with ``ctypes``.
@@ -28,7 +29,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "gemm_int8.cu", "probe_window.cu")
-_HEADERS = ("attention_common.cuh", "attention_fwd.cuh", "gemm_sm90.cuh", "sm90.cuh")
+_HEADERS = ("attention_common.cuh", "attention_fwd.cuh", "attention_sm90.cuh", "gemm_sm90.cuh",
+            "sm90.cuh")
 # no --use_fast_math: the int8 quantization divides and rounds as IEEE does
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

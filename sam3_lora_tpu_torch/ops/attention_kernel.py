@@ -16,22 +16,25 @@ views; the ``*_packed_*`` functions take (N, L, P*dh) operands. The entry
 points use the plain versions only for CPU tensors; ``chip_smoke.py`` holds
 the kernels against them on the card.
 
-The backward runs three kernels: a prep pass (``attention_bwd_prep_cuda``,
-plain version ``attention_bwd_prep_plain``: D = rowsum(dO o O), and with RoPE
-q and k rotated once into contiguous scratch), then the dK/dV and dQ passes,
-which read q (or its rotation), k, v and dO through 4-D TMA maps. The maps'
-layout and the checks TMA needs (``tma_map``, ``bwd_maps``) are plain Python
-that runs on any device, so the CPU tests reach them.
+The forward runs, with RoPE, a rotation pass (``rope_cuda``, plain version
+``rope_plain``: q and k rotated once into contiguous scratch), then its main
+kernel, which reads q (or its rotation), k (or its rotation) and v through
+4-D TMA maps. The backward runs three kernels: a prep pass
+(``attention_bwd_prep_cuda``, plain version ``attention_bwd_prep_plain``: D =
+rowsum(dO o O), and with RoPE the same rotation), then the dK/dV and dQ
+passes, which read q, k, v and dO through TMA maps. The maps' layout and the
+checks TMA needs (``tma_map``, ``fwd_plan``, ``bwd_maps``) are plain
+Python that runs on any device, so the CPU tests reach them.
 
 Gradients: when an operand requires grad, ``attend`` and ``attend_qkv`` go
 through a ``torch.autograd.Function`` whose forward also writes the fp32 row
 log-sum-exp and whose backward launches the backward kernel (or, on the CPU,
 runs the plain backward). Without grad the forward runs alone, as in serving.
 Each entry counts its forward launches on ``entry.launches`` and its backward
-launches (one per Function backward) on ``entry.bwd_launches``. Inside a
-checkpoint region that keeps the caller's tag (``remat.py``), the replay in
-the backward launches no forward: it takes the first pass's output and
-log-sum-exp back.
+launches (one per Function backward) on ``entry.bwd_launches``; the rotation
+pass counts its own on ``rope_cuda.launches``. Inside a checkpoint region
+that keeps the caller's tag (``remat.py``), the replay in the backward
+launches no forward: it takes the first pass's output and log-sum-exp back.
 """
 
 from __future__ import annotations
@@ -53,7 +56,10 @@ def _library() -> ctypes.CDLL:
     lib = _cuda.library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
-    lib.sam3_attention_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [strides, ctypes.c_float, ptr]
+    lib.sam3_attention_rope.argtypes = [ptr] * 6 + [i32] * 4 + [strides, ptr]
+    lib.sam3_attention_rope.restype = i32
+    lib.sam3_attention_fwd.argtypes = [ptr] * 9 + [i32] * 5 + [strides, strides, ctypes.c_float,
+                                                               ptr]
     lib.sam3_attention_fwd.restype = i32
     lib.sam3_attention_bwd_prep.argtypes = [ptr] * 10 + [i32] * 5 + [strides, ptr]
     lib.sam3_attention_bwd_prep.restype = i32
@@ -92,15 +98,26 @@ def _check_layout(name: str, t: torch.Tensor, shape) -> None:
         )
 
 
+_TILE = 64  # rows of a TMA box and of a CTA; the prep pads lse and D to whole tiles
+_MAP_REFUSED = 100000  # the C entries' code for a refused TMA map, + CUresult
+
+
+def _check_cuda(**tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+
+
 def _check_call(q, k, v, cos, sin) -> Tuple[int, int, int, int]:
-    """Checks (N, P, L, dh) views q, k, v and the tables; returns N, P, L, dh."""
+    """Checks (N, P, L, dh) views q, k, v and the tables on any device;
+    returns N, P, L, dh."""
     if q.dim() != 4:
         raise ValueError(f"q must be an (N, P, L, dh) view, got {tuple(q.shape)}")
     n, p, l, dh = q.shape
     if dh not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not in {SUPPORTED_HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, t, q.shape)
+        _check_layout(name, t, q.shape)
     if (cos is None) != (sin is None):
         raise ValueError("cos and sin go together")
     if cos is not None:
@@ -120,34 +137,184 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _raise_on(err: int, entry: str, maps) -> None:
+    """The error of a C entry point that encodes TMA maps, if any."""
+    if err >= _MAP_REFUSED:
+        raise RuntimeError(f"{entry}: cuTensorMapEncodeTiled refused a TMA map, "
+                           f"CUresult {err - _MAP_REFUSED}; maps {list(maps)}")
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def rope_plain(q, k, cos, sin):
+    """Plain PyTorch version of the forward's rotation pass (and of the
+    backward prep's): q and k rotated by the (L, dh/2) tables,
+    ``apply_rope_half`` (fp32, rounded to q's dtype)."""
+    return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+
+
+def rope_cuda(q, k, cos, sin, qr=None, kr=None):
+    """Launch the rotation pass on (N, P, L, dh) bf16 CUDA views q, k: their
+    rotation, as ``rope_plain`` gives it bit for bit, into the contiguous
+    (N, P, L, dh) ``qr``, ``kr`` (new tensors by default), which it returns.
+    Counted on ``rope_cuda.launches``."""
+    n, p, l, dh = _check_call(q, k, k, cos, sin)
+    if cos is None:
+        raise ValueError("the rotation pass needs the cos and sin tables")
+    _check_cuda(q=q, k=k, cos=cos)
+    qr = torch.empty(q.shape, dtype=q.dtype, device=q.device) if qr is None else qr
+    kr = torch.empty(q.shape, dtype=q.dtype, device=q.device) if kr is None else kr
+    for name, t in (("qr", qr), ("kr", kr)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(f"{name} must be a contiguous {tuple(q.shape)} {q.dtype} CUDA tensor")
+    err = _library().sam3_attention_rope(
+        q.data_ptr(), k.data_ptr(), qr.data_ptr(), kr.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        n, l, p, dh, _strides(q, k), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "sam3_attention_rope", [])
+    rope_cuda.launches += 1
+    return qr, kr
+
+
+rope_cuda.launches = 0
+
+
+def fwd_maps(q, k, v):
+    """The three TMA maps of the forward's main kernel (q or its rotation, k
+    or its rotation, v), as the C array ``sam3_attention_fwd`` and
+    ``sam3_probe_stage`` take. Raises ValueError for a view TMA cannot
+    read (``tma_map``)."""
+    flat = [x for name, t in (("q", q), ("k", k), ("v", v)) for x in tma_map(name, t)]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _geometry(t: torch.Tensor, head_dim: Optional[int]):
+    """(shape, strides) of the (N, P, L, dh) view of ``t``: ``t`` itself
+    when ``head_dim`` is None, else the heads of a packed (N, L, P*dh)
+    tensor, worked out without building the view."""
+    if head_dim is None:
+        return tuple(t.shape), t.stride()
+    n, l, w = t.shape
+    sn, sl, sd = t.stride()
+    return (n, w // head_dim, l, head_dim), (sn, head_dim * sd, sl, sd)
+
+
+class _FwdPlan:
+    """What one layout of the forward's operands needs at a launch, worked
+    out once: the sizes, the TMA maps of the main kernel's q, k (or their
+    rotation's scratch) and v, and the (n, p, l) strides of q, k and o, as
+    the C arrays ``sam3_attention_fwd`` takes."""
+
+    def __init__(self, q, k, v, o, rope: bool):
+        self.n, self.p, self.l, self.dh = q.shape
+        self.numel = q.numel()
+        qm = km = torch.empty(q.shape, dtype=q.dtype, device="meta") if rope else None
+        self.maps = fwd_maps(qm if rope else q, km if rope else k, v)
+        self.strides = _strides(q, k, o)
+
+
+def fwd_plan(q, k, v, o, head_dim: Optional[int] = None, cos=None, sin=None) -> _FwdPlan:
+    """The forward's checks, on any device, for operands in an entry's
+    layout (packed (N, L, P*head_dim), or (N, P, L, dh) views when
+    ``head_dim`` is None), and the plan of their layout (``_layout_plan``:
+    worked out once per layout). Raises ValueError, saying why, for anything
+    the kernels do not take: dtype, shape, a last dim that is not
+    contiguous, a base or stride not 16-byte aligned, a stride TMA refuses,
+    tables of the wrong shape or type."""
+    rope = cos is not None
+    tables = ()
+    if rope and sin is not None:
+        tables = (cos.shape, cos.dtype, cos.device == q.device, cos.is_contiguous(),
+                  sin.shape, sin.dtype, sin.device == q.device, sin.is_contiguous())
+    try:
+        geoms = tuple(_geometry(t, head_dim) for t in (q, k, v, o))
+    except ValueError:  # not (N, L, P*dh)
+        geoms = None
+    plan = None
+    if geoms is not None and rope == (sin is not None) and (
+            head_dim is None or q.shape[-1] % head_dim == 0):
+        plan = _layout_plan(geoms, (q.dtype, k.dtype, v.dtype, o.dtype), tables)
+    if plan is None:  # not a layout the kernels take: say why
+        if head_dim is not None and (q.dim() != 3 or q.shape[-1] % head_dim):
+            raise ValueError(f"q must be (N, L, P*{head_dim}), got {tuple(q.shape)}")
+        views = [_as_heads(t, head_dim) for t in (q, k, v, o)]
+        _check_call(*views[:3], cos, sin)
+        _check_layout("o", views[3], views[0].shape)
+        for name, t in zip(("q", "k", "v"), views):
+            tma_map(name, t)
+        raise ValueError("the forward takes no such operands")  # a check above raised first
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a contiguous last dim and 16-byte aligned rows, "
+                             f"got a base at {t.data_ptr()} (not 16-byte aligned)")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _layout_plan(geoms, dtypes, tables) -> Optional[_FwdPlan]:
+    """The forward's ``_FwdPlan`` for (N, P, L, dh) views of these shapes,
+    strides and dtypes and these tables (shape, dtype, same device,
+    contiguous; none without RoPE), or None if the kernels do not take
+    them: the checks of ``_check_call``, ``_check_layout`` and ``tma_map``
+    on meta tensors of the layout, which depend on it alone."""
+    try:
+        q, k, v, o = (torch.empty_strided(g[0], g[1], dtype=d, device="meta")
+                      for g, d in zip(geoms, dtypes))
+        cos = sin = None
+        if tables:
+            cs, cd, c_dev, c_cont, ss, sd, s_dev, s_cont = tables
+            if not (c_dev and c_cont and s_dev and s_cont):
+                return None
+            cos, sin = (torch.empty(sh, dtype=d, device="meta") for sh, d in ((cs, cd), (ss, sd)))
+        _check_call(q, k, v, cos, sin)
+        _check_layout("o", o, q.shape)
+        return _FwdPlan(q, k, v, o, bool(tables))
+    except ValueError:
+        return None
+
+
+def _launch_fwd(q, k, v, o, head_dim, scale, cos, sin, with_lse: bool):
+    """The forward on CUDA operands in the entry's layout (packed (N, L,
+    P*head_dim), or (N, P, L, dh) views when ``head_dim`` is None) into
+    ``o`` of that layout: the checks and maps of their layout once
+    (``fwd_plan``), then per call the devices, the bases, the scratch and
+    one C call (the rotation pass with tables, then the main kernel).
+    Returns the (N, P, L) fp32 log-sum-exp with ``with_lse``, else None."""
+    _check_cuda(q=q, k=k, v=v, o=o)
+    plan = fwd_plan(q, k, v, o, head_dim, cos, sin)
+    n, p, l, dh = plan.n, plan.p, plan.l, plan.dh
+    qm, km = q.data_ptr(), k.data_ptr()
+    if cos is not None:
+        scratch = torch.empty(2 * plan.numel, dtype=q.dtype, device=q.device)
+        qm = scratch.data_ptr()
+        km = qm + plan.numel * scratch.element_size()
+    lse = torch.empty((n, p, l), dtype=torch.float32, device=q.device) if with_lse else None
+    err = _library().sam3_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), qm, km, _ptr(cos),
+        _ptr(sin), n, l, p, dh, 1, plan.strides, plan.maps, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "sam3_attention_fwd", plan.maps)
+    if cos is not None:
+        rope_cuda.launches += 1
+    return lse
+
+
 def attention_cuda(q, k, v, scale: float, cos=None, sin=None, o=None, with_lse: bool = False):
-    """Launch the forward kernel on (N, P, L, dh) bf16 CUDA views of any
-    strides with a contiguous last dim. Writes ``o`` (an (N, P, L, dh) view;
-    a new contiguous tensor by default) and returns it, with ``with_lse``
-    also its (N, P, L) fp32 row log-sum-exp. Raises on anything the kernel
-    does not take."""
-    n, p, l, dh = _check_call(q, k, v, cos, sin)
+    """Launch the forward on (N, P, L, dh) bf16 CUDA views of any strides
+    with a contiguous last dim and 16-byte aligned rows: with tables, the
+    rotation pass (counted on ``rope_cuda.launches``), then the main kernel.
+    Writes ``o`` (an (N, P, L, dh) view; a new contiguous tensor by default)
+    and returns it, with ``with_lse`` also its (N, P, L) fp32 row
+    log-sum-exp. Raises on anything the kernels do not take
+    (``fwd_plan``)."""
     if o is None:
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _check_operand("o", o, q.shape)
-    lse = torch.empty((n, p, l), dtype=torch.float32, device=q.device) if with_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().sam3_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse),
-        _ptr(cos), _ptr(sin), n, l, p, dh, _strides(q, k, v, o), float(scale), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"sam3_attention_fwd launch failed: cudaError {err}")
+    lse = _launch_fwd(q, k, v, o, None, scale, cos, sin, with_lse)
     return (o, lse) if with_lse else o
 
 
-_TILE = 64  # rows of a TMA box and of a CTA; the prep pads lse and D to whole tiles
-_MAP_REFUSED = 100000  # sam3_attention_bwd's code for a refused TMA map, + CUresult
-
-
 def tma_map(name: str, t: torch.Tensor):
-    """The 4-D TMA map of an (N, P, L, dh) bf16 view as
-    ``sam3_attention_bwd`` takes it: [extents of dimensions 1..3, their
+    """The 4-D TMA map of an (N, P, L, dh) bf16 view as the forward and
+    backward C entry points take it: [extents of dimensions 1..3, their
     strides in bytes, slots, 0]. Dimension 0 is the contiguous dh;
     dimensions 1..3 are the view's L, P and N ordered by increasing stride
     (a dimension of extent 1 is never stepped and goes last, with the view's
@@ -158,20 +325,30 @@ def tma_map(name: str, t: torch.Tensor):
     if t.dim() != 4 or t.shape[3] not in SUPPORTED_HEAD_DIMS or t.dtype != torch.bfloat16:
         raise ValueError(f"{name} must be an (N, P, L, dh) bfloat16 view with dh in "
                          f"{SUPPORTED_HEAD_DIMS}, got {t.dtype} {tuple(t.shape)}")
-    n, p, l, dh = t.shape
-    sn, sp, sl, sd = t.stride()
+    spec = _map_spec(tuple(t.shape), t.stride())
+    if spec is None or t.data_ptr() % 16:
+        raise ValueError(f"{name} is not a TMA view: it needs a contiguous last dim, a 16-byte "
+                         f"aligned base and strides of 16-byte multiples (aligned rows), got "
+                         f"strides {t.stride()}")
+    return list(spec)
+
+
+@functools.lru_cache(maxsize=512)
+def _map_spec(shape, strides):
+    """``tma_map`` of a bf16 view of this shape and these strides (in
+    elements), or None where TMA cannot read it."""
+    n, p, l, dh = shape
+    sn, sp, sl, sd = strides
     span = dh + sum((e - 1) * st for e, st in ((n, sn), (p, sp), (l, sl)))
     span = -(-span // 8) * 8
     dims = [(st if e > 1 else span, e, which)
             for which, (e, st) in enumerate(((l, sl), (p, sp), (n, sn)))]
-    if sd != 1 or t.data_ptr() % 16 or any(st <= 0 or st % 8 for st, _, _ in dims):
-        raise ValueError(f"{name} is not a TMA view: it needs a contiguous last dim, a 16-byte "
-                         f"aligned base and strides of 16-byte multiples (aligned rows), got "
-                         f"strides {t.stride()}")
+    if sd != 1 or any(st <= 0 or st % 8 for st, _, _ in dims):
+        return None
     dims.sort(key=lambda d: (d[0], d[2]))
     slot = {which: i + 1 for i, (_, _, which) in enumerate(dims)}
-    return ([e for _, e, _ in dims] + [st * t.element_size() for st, _, _ in dims]
-            + [slot[0] | slot[1] << 4 | slot[2] << 8, 0])
+    return tuple([e for _, e, _ in dims] + [st * 2 for st, _, _ in dims]
+                 + [slot[0] | slot[1] << 4 | slot[2] << 8, 0])
 
 
 def bwd_maps(qm, km, v, do):
@@ -189,7 +366,7 @@ def attention_bwd_prep_plain(q, k, o, do, cos=None, sin=None):
     (each lane of dh/8 adds its 8 exact bf16 products in sequence, then a
     butterfly over the lanes), so the kernel gives the same bits."""
     if cos is not None:
-        q, k = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        q, k = rope_plain(q, k, cos, sin)
     prod = (do.float() * o.float()).unflatten(-1, (-1, 8))  # (N, P, L, dh/8, 8)
     acc = prod[..., 0]
     for j in range(1, 8):
@@ -217,6 +394,7 @@ def _check_bwd_call(q, k, v, o, lse, do, cos, sin):
     """``_check_call`` (``v`` None: q and k alone) and the backward's own
     operands; returns dO, copied when its view is not one the kernels read."""
     n, p, l, _ = _check_call(q, k, k if v is None else v, cos, sin)
+    _check_cuda(q=q, k=k, **({} if v is None else {"v": v}))
     if do.stride(3) != 1 or any(s % 8 for s in do.stride()[:3]) or do.data_ptr() % 16:
         do = do.contiguous()
     _check_operand("o", o, q.shape)
@@ -267,11 +445,7 @@ def attention_bwd_cuda(q, k, v, o, lse, do, scale: float, cos=None, sin=None, ou
         dv.data_ptr(), _ptr(cos), _ptr(sin), n, l, p, dh, scratch.shape[2],
         _strides(q, k, o, do, dq, dk, dv), maps, float(scale), stream,
     )
-    if err >= _MAP_REFUSED:
-        raise RuntimeError(f"sam3_attention_bwd: cuTensorMapEncodeTiled refused a TMA map, "
-                           f"CUresult {err - _MAP_REFUSED}; maps {list(maps)}")
-    if err != 0:
-        raise RuntimeError(f"sam3_attention_bwd launch failed: cudaError {err}")
+    _raise_on(err, "sam3_attention_bwd", maps)
     return dq, dk, dv
 
 
@@ -280,12 +454,9 @@ def attention_packed_cuda(q, k, v, scale: float, head_dim: int, cos=None, sin=No
     """``attention_cuda`` on (N, L, P*head_dim) operands (rows may be
     strided); returns a new contiguous (N, L, P*head_dim) output, and with
     ``with_lse`` also its (N, P, L) fp32 row log-sum-exp."""
-    if q.dim() != 3 or q.shape[-1] % head_dim:
-        raise ValueError(f"q must be (N, L, P*{head_dim}), got {tuple(q.shape)}")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    out = attention_cuda(*(_heads(t, head_dim) for t in (q, k, v)), scale, cos, sin,
-                         o=_heads(o, head_dim), with_lse=with_lse)
-    return (o, out[1]) if with_lse else o
+    lse = _launch_fwd(q, k, v, o, head_dim, scale, cos, sin, with_lse)
+    return (o, lse) if with_lse else o
 
 
 def attention_packed_bwd_cuda(q, k, v, o, lse, do, scale: float, head_dim: int, cos=None,
@@ -380,15 +551,12 @@ def _forward(entry, q, k, v, scale, head_dim, cos, sin, with_lse: bool):
     _device_check(entry, q)
 
     def compute():
-        views = [_as_heads(t, head_dim) for t in (q, k, v)]
         if q.device.type == "cpu":
-            o = attention_plain(*views, scale, cos, sin)
+            o = attention_plain(*(_as_heads(t, head_dim) for t in (q, k, v)), scale, cos, sin)
             o, lse = (o if head_dim is None else _merge(o)), None
         else:
             o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-            out = attention_cuda(*views, scale, cos, sin, o=_as_heads(o, head_dim),
-                                 with_lse=with_lse)
-            lse = out[1] if with_lse else None
+            lse = _launch_fwd(q, k, v, o, head_dim, scale, cos, sin, with_lse)
             entry.launches += 1
         return (o, lse) if with_lse else o
 

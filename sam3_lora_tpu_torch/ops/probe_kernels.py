@@ -6,9 +6,10 @@ package's Pallas probes of its window kernel (``scripts/probe_window_cost.py``,
 
 * ``stage``: the stage ladder, the production forward (K1) with one stage
   more or less per rung (``STAGES``), on (N, P, L, 64) bf16 views of any
-  strides with a contiguous last dim; ``pair`` takes the block-diagonal
-  head-pair form (``PAIR_STAGES``, P = 2), and ``wpc`` sets how many heads
-  (pairs) one CTA walks;
+  strides with a contiguous last dim and 16-byte aligned rows (read by the
+  forward's TMA maps, ``attention_kernel.fwd_maps``); ``pair`` takes the
+  block-diagonal head-pair form (``PAIR_STAGES``, P = 2), and ``wpc`` sets
+  how many heads (pairs) one CTA walks;
 * ``op_rate``: y <- f(y), ``passes`` times over a resident (rows, 576) tile
   (``OPS``);
 * ``pair_bwd``: the backward of the head-pair-packed layout, which is the
@@ -46,8 +47,9 @@ LOG2E = 1.4426950408889634
 def _library() -> ctypes.CDLL:
     lib = _cuda.library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sam3_probe_stage.argtypes = ([ptr] * 4 + [i32] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
-                                     + [i32] * 3 + [ctypes.c_float, ptr])
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    lib.sam3_probe_stage.argtypes = ([ptr] * 4 + [i32] * 3 + [strides] * 2 + [i32] * 3
+                                     + [ctypes.c_float, ptr])
     lib.sam3_probe_stage.restype = i32
     lib.sam3_probe_op.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.sam3_probe_op.restype = i32
@@ -139,12 +141,12 @@ def stage(q, k, v, name: str, scale: float, pair: bool = False, wpc: int = 1, o=
         raise ValueError(f"wpc {wpc} must divide {ctas} CTAs' work into at most 65535")
     if pair and p != 2:
         raise ValueError(f"the pair form takes P = 2, got {p}")
+    maps = attention_kernel.fwd_maps(q, k, v)
     err = _library().sam3_probe_stage(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, l, p,
-        attention_kernel._strides(q, k, v, o), STAGES.index(name), int(pair), wpc, float(scale),
+        attention_kernel._strides(o), maps, STAGES.index(name), int(pair), wpc, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sam3_probe_stage launch failed: cudaError {err}")
+    attention_kernel._raise_on(err, "sam3_probe_stage", maps)
     stage.launches[variant(name, pair, wpc)] += 1
     return o
 

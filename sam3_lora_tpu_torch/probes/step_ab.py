@@ -1,7 +1,7 @@
 """A/B of checkouts of the port on one card: the int8 tier's K4 and K6
-against their PyTorch yardsticks at fc1, the attention backward at bench.py's
-batch against scaled_dot_product_attention's backward, and three training
-phases of each checkout, each with one profiled step.
+against their PyTorch yardsticks at fc1, the attention forward and backward
+at bench.py's batch against scaled_dot_product_attention's, and three
+training phases of each checkout, each with one profiled step.
 
     python sam3_lora_tpu_torch/probes/step_ab.py --trees _proof/parent . . _proof/parent --out ab.jsonl
 
@@ -16,6 +16,13 @@ name), builds its own kernels from its own sources and trains with its own
   wrappers, ``torch._int_mm`` on the same int8 operands, bf16
   ``torch.matmul`` of x against the dequantized weight and
   ``torch.matmul(dy, w_deq)``; K4 held bit for bit to its plain version;
+* ``fwd``: the tree's ``attention_packed_cuda`` with ``with_lse`` (as
+  training calls it) at bench.py's batch 8: K1 (72 windows x 16 heads x 576
+  x 64, RoPE), K2 (8 x 16 x 5184 x 64, RoPE) and K3 (8 x 8 x 5184 x 32): its
+  median CUDA-event ms, the device ms of its kernels in one profiled call
+  (by kernel: the rotation pass and the main kernel), and one
+  ``scaled_dot_product_attention`` call on the same operands rotated
+  beforehand, with o's largest difference from the library's;
 * ``bwd``: the tree's ``attention_packed_bwd_cuda`` at bench.py's batch 8:
   K1-bwd (72 windows x 16 heads x 576 x 64, RoPE), K2-bwd (8 x 16 x 5184 x
   64, RoPE) and K3-bwd (8 x 8 x 5184 x 32): its median CUDA-event ms, the
@@ -27,7 +34,8 @@ name), builds its own kernels from its own sources and trains with its own
   (bf16; the int8 tier with ``GEMM_BWD_KERNEL`` on) and bench-train at batch
   8 (``bench_model_config``, ``bench_lora_config``): four steps (the first
   is the warm-up) and the profile of a fifth: device ms by kernel, K4's,
-  K6's and the attention backward's kernels' sums, the busy share.
+  K6's and the attention forward's and backward's kernels' sums, the busy
+  share.
 
 Seeds are fixed, so every tree sees the same operands and samples.
 """
@@ -50,6 +58,11 @@ K6_KERNELS = ("Bf16Plain", "dequant_t_kernel", "bf16_gemm_nt_kernel")
 # the attention backward's kernels: the prep pass and the TMA/wgmma passes,
 # or the first design's row dot and mma.sync passes
 BWD_KERNELS = ("bwd_prep_kernel", "rowdot_kernel", "dkdv_kernel", "dq_kernel")
+# the attention forward's kernels: the rotation pass and the main kernel
+# (the first design's one kernel has the main kernel's name)
+FWD_KERNELS = ("rope_kernel", "attention_fwd_kernel")
+FWD_CASES = (("K1", 72, 576, 16, 64, True), ("K2", 8, 5184, 16, 64, True),
+             ("K3", 8, 5184, 8, 32, False))
 BWD_CASES = (("K1-bwd", 72, 576, 16, 64, True), ("K2-bwd", 8, 5184, 16, 64, True),
              ("K3-bwd", 8, 5184, 8, 32, False))
 STEPS = 4
@@ -100,17 +113,57 @@ def kernel_sums(prof: dict, names) -> dict:
     return out
 
 
+def _operands(torch, g, n, l, p, dh, rope):
+    """q, k, v as column views of one (n, l, 3 p dh) qkv tensor, and the
+    RoPE tables (random angles) or None."""
+    qkv = torch.randn(n, l, 3 * p * dh, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, -1)
+    cos = sin = None
+    if rope:
+        ang = torch.rand(l, dh // 2, generator=g, device="cuda") * 6
+        cos, sin = ang.cos(), ang.sin()
+    return q, k, v, cos, sin
+
+
+def fwd_rows(torch, ak, median_ms, profile_step):
+    """The forward at bench.py's batch beside the library's (``fwd`` above)."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for name, n, l, p, dh, rope in FWD_CASES:
+        q, k, v, cos, sin = _operands(torch, g, n, l, p, dh, rope)
+        scale = dh ** -0.5
+
+        def call():
+            return ak.attention_packed_cuda(q, k, v, scale, dh, cos, sin, with_lse=True)
+
+        o = call()[0]
+        ms = median_ms(call)
+        split = kernel_sums(profile_step(call), FWD_KERNELS)
+        qh, kh, vh = (ak._heads(t, dh) for t in (q, k, v))
+        if rope:
+            qh, kh = (ak.apply_rope_half(t, cos, sin) for t in (qh, kh))
+        qh, kh, vh = (t.contiguous() for t in (qh, kh, vh))
+        lib = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        o_err = (ak._heads(o, dh).float() - lib.float()).abs().max().item()
+        sdpa_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale))
+        rows.append({"row": name, "shape": [n, p, l, dh], "rope": rope, "ms": ms,
+                     "device_ms": {k: v[0] for k, v in split.items()},
+                     "device_total_ms": sum(v[0] for v in split.values()),
+                     "sdpa_ms": sdpa_ms, "o_max_abs_diff_vs_sdpa": o_err,
+                     "o_max_abs_sdpa": lib.float().abs().max().item()})
+        print(json.dumps(rows[-1]), flush=True)
+        del q, k, v, o, qh, kh, vh, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
 def bwd_rows(torch, ak, median_ms, profile_step):
     """The backward at bench.py's batch beside the library's (``bwd`` above)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for name, n, l, p, dh, rope in BWD_CASES:
-        qkv = torch.randn(n, l, 3 * p * dh, generator=g, device="cuda").to(torch.bfloat16)
-        q, k, v = qkv.chunk(3, -1)
-        cos = sin = None
-        if rope:
-            ang = torch.rand(l, dh // 2, generator=g, device="cuda") * 6
-            cos, sin = ang.cos(), ang.sin()
+        q, k, v, cos, sin = _operands(torch, g, n, l, p, dh, rope)
         scale = dh ** -0.5
         o, lse = ak.attention_packed_cuda(q, k, v, scale, dh, cos, sin, with_lse=True)
         do = torch.randn(o.shape, generator=g, device="cuda").to(torch.bfloat16)
@@ -136,7 +189,7 @@ def bwd_rows(torch, ak, median_ms, profile_step):
                      "device_total_ms": sum(v[0] for v in split.values()),
                      "sdpa_bwd_ms": sdpa_ms, "dv_rel_diff_vs_sdpa": dv_err})
         print(json.dumps(rows[-1]), flush=True)
-        del qkv, q, k, v, o, lse, do, grads, qh, kh, vh, out, doh, lib
+        del q, k, v, o, lse, do, grads, qh, kh, vh, out, doh, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -178,9 +231,11 @@ def profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch: int) -> dict
 
     (k4_ms, k4_n), (k6_ms, k6_n) = total(K4_KERNELS), total(K6_KERNELS)
     bwd = kernel_sums(prof, BWD_KERNELS)
+    fwd = kernel_sums(prof, FWD_KERNELS)
     res = {"step_s": times, "peak_gib": peak / 2 ** 30, "device_ms": prof["device_ms"],
            "window_ms": prof["window_ms"], "busy_share": prof["busy_share"],
            "k4_ms": k4_ms, "k4_launches": k4_n, "k6_ms": k6_ms, "k6_launches": k6_n,
+           "fwd_ms": sum(v[0] for v in fwd.values()), "fwd_by_kernel": fwd,
            "bwd_ms": sum(v[0] for v in bwd.values()), "bwd_by_kernel": bwd,
            "top": [(name[:120], ms, n) for name, (ms, n) in list(prof["kernels"].items())[:TOP]]}
     print(json.dumps({k: v for k, v in res.items() if k != "top"}), flush=True)
@@ -207,6 +262,7 @@ def worker(tree: str, out: str) -> None:
 
     profile_step = _profile_step()
     res = {"tree": tree, "device": smi, "gemm": gemm_rows(torch, gemm_int8, quant, median_ms),
+           "fwd": fwd_rows(torch, attention_kernel, median_ms, profile_step),
            "bwd": bwd_rows(torch, attention_kernel, median_ms, profile_step)}
     for phase, cfg, lora, batch in (
             ("train", chip_smoke.model_config(False), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),

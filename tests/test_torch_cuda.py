@@ -8,7 +8,8 @@ plain versions at the model's K x N and at every shape of
 quantization, the dequantize-transpose) against theirs, the counters, the
 routing of the autograd Functions and the wrappers' checks. The backward
 is also held deterministic (two launches, equal bits) and its prep pass
-bit for bit equal to its plain version. These need an NVIDIA GPU with
+bit for bit equal to its plain version; so is the forward (two launches,
+its log-sum-exp against the plain one, its rotation pass bit for bit). These need an NVIDIA GPU with
 nvcc and skip elsewhere; on a machine with a GPU run
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance: attention max |kernel - plain| <= 2e-2 * max |plain|, as in
@@ -77,6 +78,22 @@ def _tables(l, dh):
     return torch.tensor(np.cos(ang), device="cuda"), torch.tensor(np.sin(ang), device="cuda")
 
 
+LSE_ATOL = chip_smoke.LSE_ATOL  # natural-log units: bf16-rounded rotated q, k
+
+
+def _assert_lse(q, k, v, dh, cos, sin):
+    """The forward's log-sum-exp (as training asks for it) against the plain
+    one of the same (rotated) scores; its output equal to the no-lse call's."""
+    o, lse = attention_packed_cuda(q, k, v, dh ** -0.5, dh, cos, sin, with_lse=True)
+    torch.cuda.synchronize()
+    qh, kh = (attention_kernel._heads(t, dh) for t in (q, k))
+    if cos is not None:
+        qh, kh = attention_kernel.rope_plain(qh, kh, cos, sin)
+    ref = torch.logsumexp(torch.einsum("npqd,npkd->npqk", qh.float(), kh.float()) * dh ** -0.5, -1)
+    assert (lse - ref).abs().max().item() <= LSE_ATOL
+    assert torch.equal(o, attention_packed_cuda(q, k, v, dh ** -0.5, dh, cos, sin))
+
+
 @pytest.mark.parametrize("l", [1, 37, 64, 100, 576])
 @pytest.mark.parametrize("p,dh", [(2, 64), (4, 32), (16, 64)])
 def test_window_kernel_matches_plain(gen, l, p, dh):
@@ -88,6 +105,7 @@ def test_window_kernel_matches_plain(gen, l, p, dh):
     assert window_attention_rope_packed.launches == before + 1
     ref = window_attention_rope_packed_plain(q, k, v, dh ** -0.5, cos, sin)
     _assert_matches(out, ref)
+    _assert_lse(q, k, v, dh, cos, sin)
 
 
 @pytest.mark.parametrize("l", [77, 1000])
@@ -97,11 +115,40 @@ def test_long_kernels_match_plain(gen, l, p, dh):
     out = long_attention_packed(q, k, v, dh ** -0.5, dh)
     ref = long_attention_packed_plain(q, k, v, dh ** -0.5, dh)
     _assert_matches(out, ref)
+    _assert_lse(q, k, v, dh, None, None)
     ang = compute_axial_freqs(dh, l, 1, scale_pos=1.0 / 3.0)
     cos, sin = (torch.tensor(f(ang), device="cuda") for f in (np.cos, np.sin))
     out = long_attention_rope_packed(q, k, v, dh ** -0.5, dh, cos, sin)
     ref = window_attention_rope_packed_plain(q, k, v, dh ** -0.5, cos, sin)
     _assert_matches(out, ref)
+    _assert_lse(q, k, v, dh, cos, sin)
+
+
+@pytest.mark.parametrize("l", [1, 37, 576, 1000])
+@pytest.mark.parametrize("p,dh,rope", [(2, 64, True), (2, 64, False), (4, 32, True),
+                                       (8, 32, False)])
+def test_forward_kernels_are_deterministic(gen, l, p, dh, rope):
+    q, k, v = _qkv(gen, 2, l, p * dh)
+    cos, sin = _tables(l, dh) if rope else (None, None)
+    first = attention_packed_cuda(q, k, v, dh ** -0.5, dh, cos, sin, with_lse=True)
+    second = attention_packed_cuda(q, k, v, dh ** -0.5, dh, cos, sin, with_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("l", [1, 37, 576])
+@pytest.mark.parametrize("p,dh", [(2, 64), (16, 64), (4, 32)])
+def test_rope_pass_equals_plain(gen, l, p, dh):
+    """The forward's rotation pass, on strided column views of a packed qkv,
+    bit for bit its plain version (and the backward prep's rotation)."""
+    q, k = (attention_kernel._heads(t, dh) for t in _qkv(gen, 2, l, p * dh)[:2])
+    cos, sin = _tables(l, dh)
+    before = attention_kernel.rope_cuda.launches
+    got = attention_kernel.rope_cuda(q, k, cos, sin)
+    torch.cuda.synchronize()
+    assert attention_kernel.rope_cuda.launches == before + 1
+    for a, b in zip(got, attention_kernel.rope_plain(q, k, cos, sin)):
+        assert a.is_contiguous() and torch.equal(a, b)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
@@ -114,6 +161,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
         long_attention_packed(q[:, :, 1:97], k[:, :, 1:97], v[:, :, 1:97], 0.1, 32)
     with pytest.raises(ValueError, match="shape"):
         long_attention_packed(q, k[:, :8], v, 0.1, 32)
+    # views TMA refuses: a sequence stride of 0 (one k broadcast over N),
+    # rows of 264 bytes
+    qq, kk, vv = (t.contiguous() for t in _qkv(gen, 2, 16, 128))
+    with pytest.raises(ValueError, match="TMA"):
+        long_attention_packed(qq, kk[:1].expand(2, -1, -1), vv, 0.1, 32)
+    odd = torch.randn(2, 16, 132, generator=gen, device="cuda").to(torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="aligned"):
+        long_attention_packed(qq, kk, odd, 0.1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_kernel.attention_cuda(*(attention_kernel._heads(t.cpu(), 32) for t in (q, k, v)),
+                                        0.1)
 
 
 @pytest.mark.parametrize("l", [1, 37, 77, 100, 576])
