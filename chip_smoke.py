@@ -19,18 +19,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    forward at serving's 9 windows (twice, equal bits) and
                    backward at batch 8;
                    the int8 tier's K4/K6 (each its first pass and the
-                   TMA/wgmma mainloop of csrc/gemm_sm90.cuh) and K5 against
-                   their plain versions at every ViT shape at M = 5184
-                   (serving), 20736 (training) and 41472 (bench.py's batch;
-                   K4 and K6), the text shapes at M = 96 and a ragged M;
-                   K4 bit for bit; errors, median CUDA-event times, roofline
-                   bounds and a library yardstick each.
+                   TMA/wgmma mainloop of csrc/gemm_sm90.cuh) and K5 (K4's
+                   quantization fused with the xa product, and the
+                   mainloop's low-rank step)
+                   against their plain versions at every ViT shape at
+                   M = 5184 (serving), 20736 (training) and 41472 (bench.py's
+                   batch; K4 and K6), the text shapes at M = 96 and a ragged
+                   M; K4 bit for bit, K5 twice for equal bits and also at
+                   ranks 32 and 64 (fc1 serving); errors, median CUDA-event
+                   times, roofline bounds and a library yardstick each; each
+                   K5 line beside the unfused chain (K4, the two adapter
+                   products, the add) and K4 of its shape.
   4. slice       - SAM3LoRAInference at the full 848M config (bf16, seeded random
                    weights, nonzero adapters) answers three requests of 1, 2 and
                    3 prompts; every output finite and of the right shape; the
                    launch counters show the requests ran through the kernels.
   5. slice-int8  - the same with base_quant="int8" and GEMM_LORA_FUSED on: the
-                   adapted qkv/fc1/fc2 take K5, proj and the text GEMMs K4.
+                   adapted qkv/fc1/fc2 take K5, proj and the text GEMMs K4;
+                   then one request of 1 prompt under torch.profiler: K5's
+                   device ms (its first pass and its mainloop apart).
   6. train       - Trainer.fit at the full config, batch 4, LoRA on qkv, fc1,
                    fc2, linear1 and linear2, over seeded random images and
                    targets batched by the port's collate: one warm-up and three
@@ -95,7 +102,8 @@ from sam3_lora_tpu_torch.config import (
 )
 from sam3_lora_tpu_torch.inference import SAM3LoRAInference
 from sam3_lora_tpu_torch.measure import (
-    KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, profile_step,
+    KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, paired_ms,
+    profile_step,
     roofline,
 )
 from sam3_lora_tpu_torch.models import Batch, build_sam3_image_model, init_model
@@ -546,17 +554,29 @@ def gemm_cases():
     return cases + [("fc1", "ragged", 1000, d, hid)]
 
 
+K5_RANKS = (32, 64)  # besides LORA.rank, at fc1 serving: bench_lora_config's rank and MAX_RANK
+
+
+def unfused_chain(x, wq, ws, a, b, scale: float) -> torch.Tensor:
+    """The route ``LoRALinear.forward`` takes with GEMM_LORA_FUSED off: K4,
+    then the adapter products in x's dtype (the second in fp32, as the
+    layer runs it) and the add."""
+    delta = F.linear(F.linear(x, a).float(), b.float()) * scale
+    return gemm_int8.int8_gemm_wres(x, wq, ws) + delta.to(x.dtype)
+
+
 def phase_gemm_kernels(g: torch.Generator):
-    """K4 (every case), K5 (the serving, training and ragged ViT cases, rank
-    8) and K6 (the ViT cases) on the main path's shapes against their plain
-    versions; returns (one JSON row per kernel at GEMM_ROW_CASE, failures)."""
+    """K4 (every case), K5 (the serving, training and ragged ViT cases at
+    rank 8, fc1 serving also at ranks 32 and 64) and K6 (the ViT cases) on
+    the main path's shapes against their plain versions; each K5 line also
+    times the unfused chain and reads K5 against K4 of the same shape, the
+    two timed in turns (``paired_ms``: one call's host time is part of its
+    event time, and the host's pace drifts within a run).
+    Returns (one JSON row per kernel at GEMM_ROW_CASE, failures)."""
     rows, failed = {}, []
-    rank = LORA.rank
     for layer, path, m, k, n in gemm_cases():
         x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
         wq, ws = quant.quantize_weight(torch.randn(n, k, generator=g, device="cuda") / k ** 0.5)
-        a = (torch.randn(rank, k, generator=g, device="cuda") / k ** 0.5).to(torch.bfloat16)
-        b = (0.02 * torch.randn(n, rank, generator=g, device="cuda")).to(torch.bfloat16)
         dy = torch.randn(m, n, generator=g, device="cuda").to(torch.bfloat16)
         w_deq = gemm_int8.dequantize(wq, ws, torch.bfloat16)
         xq = gemm_int8.quant_rows(x)[0]
@@ -565,10 +585,14 @@ def phase_gemm_kernels(g: torch.Generator):
         calls = [("int8_gemm_wres", (x, wq, ws), gemm_int8.int8_gemm_wres_plain,
                   2.0 * m * k * n / PEAK_INT8, m * k * 2 + n * k + n * 4 + m * n * 2, None)]
         if path in ("serve", "train", "ragged"):
-            calls.append(("int8_lora_gemm_wres", (x, wq, ws, a, b, LORA.scaling),
-                          gemm_int8.int8_lora_gemm_wres_plain,
-                          2.0 * m * k * n / PEAK_INT8 + 2.0 * m * rank * (k + n) / PEAK_BF16,
-                          m * k * 2 + n * k + n * 4 + rank * (k + n) * 2 + m * n * 2, None))
+            ranks = (LORA.rank,) + (K5_RANKS if (layer, path) == ("fc1", "serve") else ())
+            for rank in ranks:
+                a = (torch.randn(rank, k, generator=g, device="cuda") / k ** 0.5).to(torch.bfloat16)
+                b = (0.02 * torch.randn(n, rank, generator=g, device="cuda")).to(torch.bfloat16)
+                calls.append(("int8_lora_gemm_wres", (x, wq, ws, a, b, LORA.scaling),
+                              gemm_int8.int8_lora_gemm_wres_plain,
+                              2.0 * m * k * n / PEAK_INT8 + 2.0 * m * rank * (k + n) / PEAK_BF16,
+                              m * k * 2 + n * k + n * 4 + rank * (k + n) * 2 + m * n * 2, None))
         if path != "text":
             calls.append(("bf16_gemm_wres_nt", (dy, wq, ws), gemm_int8.bf16_gemm_wres_nt_plain,
                           2.0 * m * k * n / PEAK_BF16, m * n * 2 + n * k + n * 4 + m * k * 2,
@@ -581,35 +605,50 @@ def phase_gemm_kernels(g: torch.Generator):
             diff = (out.float() - ref.float()).abs()
             err = diff.max().item()
             ref_max = ref.float().abs().max().item()
+            lora = name == "int8_lora_gemm_wres"
             if name == "int8_gemm_wres":
                 ok, limit = torch.equal(out, ref), "bit-exact"
             else:
                 ok, limit = err <= GEMM_RTOL * ref_max, f"bound {GEMM_RTOL * ref_max:.3e}"
-            ms = median_ms(lambda: entry(*args))
+            if lora:  # a second launch gives the same bits; K4 of the shape timed in turns
+                same = torch.equal(out, entry(*args))
+                ok, limit = ok and same, f"{limit}; two launches equal {same}"
+                k4_ms, ms = paired_ms(lambda: gemm_int8.int8_gemm_wres(x, wq, ws),
+                                      lambda: entry(*args))
+            else:
+                ms = median_ms(lambda: entry(*args))
             plain_ms = median_ms(lambda: plain(*args), reps=3)
             bound_ms, bound_by = roofline(t_ops, nbytes)
             lib_ms = median_ms(library) if library is not None else None
+            extra = {}
             if lib_ms is not None:
-                extra = f"torch.matmul(dy, w_deq) {lib_ms:.4f} ms"
+                text = f"torch.matmul(dy, w_deq) {lib_ms:.4f} ms"
             else:
                 int_mm = yard["int_mm_ms"]
-                extra = ("yardsticks (not the same function): torch._int_mm "
-                         + ("n/a (M <= 16)" if int_mm is None else f"{int_mm:.4f} ms")
-                         + f", bf16 torch.matmul {yard['bf16_mm_ms']:.4f} ms")
-            print(f"kernel {name} {layer} ({path}) M={m} K={k} N={n}: max_abs_err {err:.3e} "
+                text = ("yardsticks (not the same function): torch._int_mm "
+                        + ("n/a (M <= 16)" if int_mm is None else f"{int_mm:.4f} ms")
+                        + f", bf16 torch.matmul {yard['bf16_mm_ms']:.4f} ms")
+            rank = f" rank {args[3].shape[0]}" if lora else ""
+            if lora:
+                extra = {"unfused_ms": median_ms(lambda: unfused_chain(*args)), "k4_ms": k4_ms}
+                text += (f"; unfused chain (K4 + F.linear x2 + add) "
+                         f"{extra['unfused_ms']:.4f} ms, "
+                         f"K4 in turns with K5 {k4_ms:.4f} ms, K5/K4 {ms / k4_ms:.3f}, "
+                         f"K5/unfused {ms / extra['unfused_ms']:.3f}")
+            print(f"kernel {name} {layer} ({path}) M={m} K={k} N={n}{rank}: max_abs_err {err:.3e} "
                   f"({limit}{'' if ok else ' FAILED'}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"roofline {bound_ms:.4f} ms ({bound_by}), {extra}", flush=True)
+                  f"roofline {bound_ms:.4f} ms ({bound_by}), {text}", flush=True)
             if not ok:
-                failed.append(f"{name} {layer} M={m}: max abs err {err:.3e} ({limit})")
-            if GEMM_ROW_CASE[name] == (layer, path):
+                failed.append(f"{name} {layer} M={m}{rank}: max abs err {err:.3e} ({limit})")
+            if GEMM_ROW_CASE[name] == (layer, path) and name not in rows:
                 rows[name] = {"name": name, "route": "cuda", "source": GEMM_SOURCE,
                               "replaces": GEMM_REPLACES[name], "launches": 0, "max_abs_err": err,
                               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "bound_by": bound_by, "library_ms": lib_ms,
-                              "shape": f"{layer} M={m} K={k} N={n}",
-                              **({} if lib_ms is not None else yard)}
+                              "shape": f"{layer} M={m} K={k} N={n}{rank}",
+                              **({} if lib_ms is not None else yard), **extra}
             del out, ref, diff
-        del x, wq, ws, a, b, dy, w_deq, xq
+        del x, wq, ws, dy, w_deq, xq, calls
         torch.cuda.empty_cache()
     return [rows[e.__name__] for e in GEMM_ENTRIES], failed
 
@@ -642,6 +681,32 @@ def with_rope(want: dict) -> dict:
 
 def model_config(int8: bool) -> ModelConfig:
     return ModelConfig(dtype="bfloat16", base_quant="int8" if int8 else "none")
+
+
+# K5's kernels by the name the profiler gives them: the first pass (row
+# quantization and xa) and the mainloop with the low-rank step
+K5_KERNELS = {"first pass": "lora_prep_kernel", "mainloop": "S8ScaledLoRA"}
+
+
+def k5_request_profile(tag: str, request, vit_depth: int) -> dict:
+    """One request under torch.profiler: K5's device ms by kernel, its
+    share of the request's device time, and the busy share."""
+    prof = profile_step(request)
+    parts = {key: [0.0, 0] for key in K5_KERNELS}
+    for name, (ms, n) in prof["kernels"].items():
+        for key, sub in K5_KERNELS.items():
+            if sub in name:
+                parts[key][0] += ms
+                parts[key][1] += n
+    total = sum(ms for ms, _ in parts.values())
+    split = ", ".join(f"{key} {ms:.4f} ms in {n}" for key, (ms, n) in parts.items())
+    print(f"{tag} profile (one request, {PROMPTS[0]}, torch.profiler): K5 {total:.4f} device ms "
+          f"({split}), {total / prof['device_ms']:.4f} of the request's {prof['device_ms']:.3f} "
+          f"device ms in a {prof['window_ms']:.3f} ms window, busy share "
+          f"{prof['busy_share']:.4f}", flush=True)
+    if any(n != 3 * vit_depth for _, n in parts.values()):
+        raise AssertionError(f"{tag} profile: K5 kernels {parts}, expected {3 * vit_depth} each")
+    return {key: ms for key, (ms, _) in parts.items()}
 
 
 def phase_slice(g: torch.Generator, int8: bool = False):
@@ -701,6 +766,8 @@ def phase_slice(g: torch.Generator, int8: bool = False):
           f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
     if launches != expected:
         raise AssertionError(f"{tag} launches {launches} != expected {expected}")
+    if int8:
+        k5_request_profile(tag, lambda: engine.predict(image, PROMPTS[0]), cfg.vit_depth)
 
     # raw outputs of the last request: finite and of the right shape
     img, _ = engine.preprocess(image)

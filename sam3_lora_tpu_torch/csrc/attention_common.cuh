@@ -1,6 +1,6 @@
 // Definitions shared by the attention kernels for Hopper (sm_90a), the
 // forward (attention_fwd.cuh), the backward (attention_bwd.cu) and the
-// window-kernel probes (probe_window.cu), and by K5's adapter products
+// window-kernel probes (probe_window.cu), and by K5's first pass
 // (gemm_int8.cu): ldmatrix fragment loads and the m16n8k16 bf16 mma.sync
 // with fp32 accumulation.
 //

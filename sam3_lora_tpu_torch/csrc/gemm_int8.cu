@@ -8,9 +8,11 @@
 //       s_x and the int8 row, written once a row) and the mainloop of
 //       gemm_sm90.cuh on s8 x s8 -> s32 (TMA ring, wgmma m64n256k32) with
 //       the scaling epilogue and a TMA store.
-//   K5  sam3_int8_lora_gemm replaces ::int8_lora_gemm_wres
-//       (_make_lora_kernel): the W8A8 product plus the LoRA branch
-//       scale * ((x A^T) B^T), on mma.sync (below, unchanged since its port).
+//   K5  replaces ::int8_lora_gemm_wres (_make_lora_kernel): the W8A8 product
+//       plus the LoRA branch scale * ((x A^T) B^T). Two launches behind
+//       sam3_int8_lora_gemm: one pass over x writes K4's row quantization and
+//       xa = bf16(scale * x A^T) (mma.sync), then K4's mainloop with a
+//       low-rank step at the end of each tile (wgmma m64n256k16 on xa, B).
 //   K6  replaces ::bf16_gemm_wres_nt (_kernel_nt): the backward dx = dy .
 //       dequant(W_q), fp32 accumulate. Two launches behind
 //       sam3_bf16_gemm_nt: sam3_dequant_t writes W_deq^T (K, N) bf16 once,
@@ -20,31 +22,51 @@
 // Layouts: x (M, K) bf16 row-major; the port's weight W_q is (N, K) int8
 // row-major (out, in), the K-major B operand of the product as it stands;
 // s_w (N,) fp32; lora_a (r, K) and lora_b (N, r) bf16; dy (M, N) bf16;
-// outputs bf16. The wrappers admit K % 32 == 0, and N % 8 == 0 for K4 (its
-// output rows are TMA-stored) and N % 32 == 0 for K6; M and N tails are
-// masked (K5) or clipped by the TMA store (K4, K6).
+// outputs bf16. The wrappers admit K % 32 == 0, N % 8 == 0 for K4 and K5
+// (their output rows are TMA-stored) and N % 32 == 0 for K6, and for K5 a
+// rank r % 8 == 0 (16-byte rows of xa and lora_b for TMA) up to 64; M and N
+// tails are zero-filled by the TMA loads and clipped by the TMA store.
 //
 // What bounds them on the H100: at the ViT shapes (M = 5184..41472, K x N up
 // to 1024 x 4736) all three are far above the card's ridge point (2MKN
 // operations against ~2(MK + MN) + KN bytes), so the bound is the tensor-core
-// rate: 1979 TOP/s int8 for K4/K5, 989 TFLOP/s bf16 for K6. K4 and K6 feed
-// the tensor cores through a TMA ring and wgmma (gemm_sm90.cuh); wgmma takes
+// rate: 1979 TOP/s int8 for K4/K5, 989 TFLOP/s bf16 for K6. They feed the
+// tensor cores through a TMA ring and wgmma (gemm_sm90.cuh); wgmma takes
 // 8-bit operands only K-major from shared memory and TMA copies bytes as they
-// are, so the row quantization (K4) and the dequantize-transpose (K6) are
+// are, so the row quantization (K4, K5) and the dequantize-transpose (K6) are
 // one pass each before the mainloop: 3 bytes per element of x, 3 per weight,
-// in place of K4's quantization in every column block and K6's
-// dequantization in every row block. K5 keeps its port's design: a block
-// owns a 128 x 128 tile, takes its rows' scales in a prologue, quantizes
-// each 32-wide K step of x into shared memory and runs mma.sync m16n8k32
-// s8 x s8 -> s32, accumulating xa = x A^T on bf16 m16n8k16 in the same loop;
-// its epilogue rounds xa to bf16 and multiplies by B^T (depth r padded to 16).
+// in place of a quantization of x in every column block and a
+// dequantization of W in every row block. K5's adapter products add
+// 2Mr(K + N) bf16 operations, at the bf16 rate 2% of the int8 product's
+// time at rank 8 and 15% at rank 64 (fc1). Its first pass computes xa while
+// it quantizes (2Mr more bytes written); the low-rank step costs each tile
+// one more ring slot and ceil(r / 16) bf16 wgmmas onto the sums already in
+// registers, so the (M, N) delta never reaches device memory. The JAX
+// kernel's design note asks the same of the TPU (the delta add fused into
+// the output write).
+//
+// K5's design departs from the recommended one in two ways. Its row
+// quantization is a pass of its own that also computes xa (K4's pass and a
+// separate xa pass cost a launch more and, on an H100, more device time at
+// fc2 than the one pass); and the scale is folded into xa (xa = bf16(fp32(scale * xa_f32))) rather
+// than applied to the delta, so the delta can accumulate onto y in the sums'
+// registers. For a power of two scale (alpha / r usually is) that equals the
+// plain version's order up to summation order; otherwise xa carries one more
+// bf16 rounding, within the tolerance (tests/test_torch_k5.py). Tried on the
+// same card and not kept, both slower at qkv and fc1: the low-rank operands
+// in the output tile's idle shared memory, loaded during the tile's K loop
+// rather than in a slot after it (the hand-over waits on the last tile's
+// stores), and 64-column boxes at every rank (more bytes of zeros through
+// TMA and shared memory at rank 8 than boxes as wide as the rank).
 //
 // Numerics (equal to ops/gemm_int8.py's plain versions): the division form
 // x / s correctly rounded (no --use_fast_math; explicit _rn intrinsics so no
 // multiply-add is contracted), round half to even (__float2int_rn), clip to
 // +-127. |acc| <= K * 127^2 < 2^31 for K < 133144, so int32 cannot overflow;
-// the int32 sum is exact, so K4 equals its plain version bit for bit. W_deq
-// is bf16(fp32(q) * s_w), one rounding, the plain version's dequantize.
+// the int32 sum is exact, so K4 equals its plain version bit for bit, and K5's
+// y (rounded to bf16 before the adapter sum is added, as the plain version
+// rounds it) is K4's output. W_deq is bf16(fp32(q) * s_w), one rounding, the
+// plain version's dequantize.
 
 #include "attention_common.cuh"
 #include "gemm_sm90.cuh"
@@ -53,230 +75,12 @@ namespace {
 
 using namespace sam3;
 
-constexpr int TM = 128;           // output rows per block
-constexpr int TN = 128;           // output columns per block
-constexpr int TK = 32;            // contraction step
-constexpr int NWARPS = 8;         // 2 (rows) x 4 (columns) warps of 64 x 32
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LD8 = TK + 16;      // int8 tile row stride, bytes (conflict-free)
-constexpr int LDX = TK + 8;       // bf16 x / A / dy tile row stride, elements
-constexpr int MAX_RP = 64;        // largest LoRA rank (padded to 16)
-constexpr int LDR = MAX_RP + 8;   // bf16 xa / B tile row stride, elements
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int MAX_RANK = 64;  // K5's largest adapter rank
 
 __device__ __forceinline__ int quant(float v, float s) {
   const int q = __float2int_rn(__fdiv_rn(v, s));
   return min(max(q, -127), 127);
 }
-
-// Store two adjacent outputs of row `row` at cols col, col + 1 (masked).
-__device__ __forceinline__ void store2(bf16* out, long long row, int col, int n,
-                                       bf16 v0, bf16 v1) {
-  bf16* p = out + row * n + col;
-  if (col + 1 < n && (n & 1) == 0) {
-    __nv_bfloat162 v;
-    v.x = v0;
-    v.y = v1;
-    *reinterpret_cast<__nv_bfloat162*>(p) = v;
-  } else {
-    if (col < n) p[0] = v0;
-    if (col + 1 < n) p[1] = v1;
-  }
-}
-
-// K5.
-__global__ void __launch_bounds__(NTHREADS)
-int8_lora_gemm_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ wq,
-                 const float* __restrict__ ws, const bf16* __restrict__ la,
-                 const bf16* __restrict__ lb, bf16* __restrict__ out, int M,
-                 int N, int K, int r, float scale) {
-  constexpr int LOOP_BYTES = 2 * TM * LD8 + (TM + MAX_RP) * LDX * 2;
-  constexpr int EPI_BYTES = 2 * TM * LDR * 2;
-  constexpr int BYTES = LOOP_BYTES > EPI_BYTES ? LOOP_BYTES : EPI_BYTES;
-  __shared__ __align__(16) unsigned char smem[BYTES];
-  __shared__ float sx[TM];
-  int8_t* As = reinterpret_cast<int8_t*>(smem);          // [TM][LD8] int8 x
-  int8_t* Bs = As + TM * LD8;                            // [TN][LD8] int8 W
-  bf16* Xs = reinterpret_cast<bf16*>(Bs + TN * LD8);     // [TM][LDX] bf16 x
-  bf16* Las = Xs + TM * LDX;                             // [MAX_RP][LDX] lora_a
-  bf16* XAs = reinterpret_cast<bf16*>(smem);             // epilogue: [TM][LDR] xa
-  bf16* LBs = XAs + TM * LDR;                            // epilogue: [TN][LDR] lora_b
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / 4, wn = warp % 4;  // this warp's 64 x 32 of the tile
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int rp = (r + 15) & ~15;            // LoRA depth padded to the k16 step
-
-  // prologue: s_x of this block's rows, one warp per 16 rows
-  for (int i = 0; i < TM / NWARPS; ++i) {
-    const int row = warp * (TM / NWARPS) + i;
-    float amax = 0.f;
-    if (m0 + row < M) {
-      const bf16* src = x + (long long)(m0 + row) * K;
-      for (int c = lane * 8; c < K; c += 32 * 8) {
-        const uint4 v = *reinterpret_cast<const uint4*>(src + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(e[j])));
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    if (lane == 0) sx[row] = fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
-  }
-  __syncthreads();
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0;
-  float xacc[MAX_RP / 8][4];  // xa of this warp's 16 rows (warp-th m16 tile)
-#pragma unroll
-  for (int j = 0; j < MAX_RP / 8; ++j) xacc[j][0] = xacc[j][1] = xacc[j][2] = xacc[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    // x tile: quantize 8 values a chunk into As and keep bf16 in Xs
-    for (int i = threadIdx.x; i < TM * (TK / 8); i += NTHREADS) {
-      const int row = i / (TK / 8), c = (i % (TK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + row < M) v = *reinterpret_cast<const uint4*>(x + (long long)(m0 + row) * K + k0 + c);
-      *reinterpret_cast<uint4*>(Xs + row * LDX + c) = v;
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      const float s = sx[row];
-      uint32_t packed[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t w = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          w |= (uint32_t)(quant(__bfloat162float(e[h * 4 + j]), s) & 0xff) << (8 * j);
-        packed[h] = w;
-      }
-      *reinterpret_cast<uint2*>(As + row * LD8 + c) = make_uint2(packed[0], packed[1]);
-    }
-    // W tile: TN rows of 32 int8
-    for (int i = threadIdx.x; i < TN * (TK / 16); i += NTHREADS) {
-      const int row = i / (TK / 16), c = (i % (TK / 16)) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + row < N) v = *reinterpret_cast<const uint4*>(wq + (long long)(n0 + row) * K + k0 + c);
-      *reinterpret_cast<uint4*>(Bs + row * LD8 + c) = v;
-    }
-    // lora_a tile: rp rows (zero past r) of 32 bf16
-    for (int i = threadIdx.x; i < rp * (TK / 8); i += NTHREADS) {
-      const int row = i / (TK / 8), c = (i % (TK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < r) v = *reinterpret_cast<const uint4*>(la + (long long)row * K + k0 + c);
-      *reinterpret_cast<uint4*>(Las + row * LDX + c) = v;
-    }
-    __syncthreads();
-
-    uint32_t a[4][4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int8_t* p = As + (wm * 64 + mi * 16 + g) * LD8 + t * 4;
-      a[mi][0] = lds32(p);
-      a[mi][1] = lds32(p + 8 * LD8);
-      a[mi][2] = lds32(p + 16);
-      a[mi][3] = lds32(p + 8 * LD8 + 16);
-    }
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int8_t* p = Bs + (wn * 32 + nj * 8 + g) * LD8 + t * 4;
-      const uint32_t b0 = lds32(p), b1 = lds32(p + 16);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) mma_s8(acc[mi][nj], a[mi], b0, b1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      uint32_t xa_a[4];
-      load_a(xa_a, Xs + warp * 16 * LDX + kk * 16, LDX);
-#pragma unroll
-      for (int j = 0; j < MAX_RP / 8; j += 2) {
-        if (j * 8 < rp) {
-          uint32_t b[4];
-          load_b_nk(b, Las + j * 8 * LDX + kk * 16, LDX);
-          mma(xacc[j], xa_a, b[0], b[1]);
-          mma(xacc[j + 1], xa_a, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // xa rounded to bf16 (the plain version's rounding point) into XAs, and
-  // the lora_b tile into LBs; both zero past r
-#pragma unroll
-  for (int j = 0; j < MAX_RP / 8; ++j) {
-    if (j * 8 < rp) {
-      bf16* p = XAs + (warp * 16 + g) * LDR + j * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(p) = pack_bf16(xacc[j][0], xacc[j][1]);
-      *reinterpret_cast<uint32_t*>(p + 8 * LDR) = pack_bf16(xacc[j][2], xacc[j][3]);
-    }
-  }
-  for (int i = threadIdx.x; i < TN * (rp / 8); i += NTHREADS) {
-    const int row = i / (rp / 8), c = (i % (rp / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n0 + row < N && c < r) v = *reinterpret_cast<const uint4*>(lb + (long long)(n0 + row) * r + c);
-    *reinterpret_cast<uint4*>(LBs + row * LDR + c) = v;
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    float delta[4][4];
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) delta[nj][0] = delta[nj][1] = delta[nj][2] = delta[nj][3] = 0.f;
-    for (int kk = 0; kk < rp / 16; ++kk) {
-      uint32_t da[4];
-      load_a(da, XAs + (wm * 64 + mi * 16) * LDR + kk * 16, LDR);
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        uint32_t b[4];
-        load_b_nk(b, LBs + (wn * 32 + nj * 8) * LDR + kk * 16, LDR);
-        mma(delta[nj], da, b[0], b[1]);
-        mma(delta[nj + 1], da, b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int lrow = wm * 64 + mi * 16 + g + h * 8;
-      const long long row = m0 + lrow;
-      if (row >= M) continue;
-      const float s = sx[lrow];
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const int col = n0 + wn * 32 + nj * 8 + t * 2;
-        bf16 v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float sw = col + e < N ? ws[col + e] : 0.f;
-          const float y = __fmul_rn(__fmul_rn((float)acc[mi][nj][h * 2 + e], s), sw);
-          v[e] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(__float2bfloat16_rn(y)),
-                                               __fmul_rn(delta[nj][h * 2 + e], scale)));
-        }
-        store2(out, row, col, N, v[0], v[1]);
-      }
-    }
-  }
-}
-
 
 // K4's first pass: x (M, K) bf16 -> xq (M, K) int8 and s_x (M,) fp32, the
 // plain version's quant_rows. T threads share a row (a warp for K <= 1024,
@@ -367,6 +171,158 @@ dequant_t_kernel(const int8_t* __restrict__ wq, const float* __restrict__ ws,
   }
 }
 
+// K5's first pass: the row quantization and xa together. x (M, K) bf16 ->
+// xq (M, K) int8 and s_x (M,) fp32, the bits of quant_rows_kernel (the same
+// division and rounding; an amax is exact in any order), and xa (M, r) bf16
+// = bf16(fp32(scale * (x . la^T))), the sums in fp32 on mma.sync m16n8k16.
+// A block owns 16 rows; its PW warps take every PW-th 32-wide K step. Pass
+// 1: per K step a thread loads 16 bytes of each of its rows (g, g + 8) and
+// of row g of each 8-row group of la straight from device memory (its 8
+// contiguous K positions fill fragment slots 2t, 2t + 1, 2t + 8, 2t + 9 of
+// two k16 products, the same permutation of K on both operands, so neither
+// needs shared memory or ldmatrix) and keeps its rows' amax. The warps'
+// partial sums and amaxes meet in shared memory, added in a fixed order.
+// Pass 2 reads the same bytes of x again, the last read first, and writes
+// them quantized. Bound by the bytes: x read (2MK; twice where the second
+// read misses L2), xq written (MK), xa (2Mr); la (2rK) comes from L2 to
+// every block. Eight warps a block keep each warp's chain of dependent loads
+// short (4 K steps at K = 1024). quant_rows_kernel's row ownership (a warp
+// or a block a row) does not fit the tensor cores' 16-row tiles, hence a
+// kernel of its own rather than an xa product inside that pass. Tried on an
+// H100 and not kept, both slower: the rows held in shared memory between the
+// passes (one block an SM at K = 4736) and one persistent block an SM
+// walking the row groups.
+constexpr int PW = 8;  // the first pass's warps a block
+template <int NT>
+__global__ void __launch_bounds__(PW * 32)
+lora_prep_kernel(const bf16* __restrict__ x, const bf16* __restrict__ la, int8_t* __restrict__ xq,
+                 float* __restrict__ sx, bf16* __restrict__ xa, int M, int K, float scale) {
+  constexpr int R = NT * 8;                          // the rank
+  constexpr int U = NT <= 4 ? 4 : 2;                 // K steps in flight a warp, pass 1
+  constexpr int U2 = 4;                              // the same, pass 2
+  __shared__ float part[PW][16 * R];                 // each warp's partial sums
+  __shared__ float amax_part[PW][16];
+  __shared__ float srow[16];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const long long row0 = (long long)blockIdx.x * 16;
+  const bf16* xr[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = row0 + 8 * h + g;
+    live[h] = row < M;
+    xr[h] = x + (live[h] ? row : 0) * K + 8 * t;
+  }
+  const bf16* ar = la + (long long)g * K + 8 * t;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  auto ld = [](const bf16* p) { return __ldg(reinterpret_cast<const uint4*>(p)); };
+  auto absmax = [](float a, const uint4& v) {
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) a = fmaxf(a, fabsf(__bfloat162float(e[j])));
+    return a;
+  };
+  float acc[NT][4], amx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int steps = K / 32;
+  const int mine = (steps - warp + PW - 1) / PW;  // this warp's steps: warp + PW i, i < mine
+  for (int i0 = 0; i0 < mine; i0 += U) {
+    uint4 xv[U][2], av[U][NT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool ok = i0 + u < mine;
+      const int k0 = (warp + PW * (i0 + u)) * 32;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) xv[u][h] = ok && live[h] ? ld(xr[h] + k0) : zero;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) av[u][j] = ok ? ld(ar + (long long)j * 8 * K + k0) : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint4 &lo = xv[u][0], &hi = xv[u][1];
+      amx[0] = absmax(amx[0], lo);
+      amx[1] = absmax(amx[1], hi);
+      const uint32_t f0[4] = {lo.x, hi.x, lo.y, hi.y}, f1[4] = {lo.z, hi.z, lo.w, hi.w};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mma(acc[j], f0, av[u][j].x, av[u][j].y);
+        mma(acc[j], f1, av[u][j].z, av[u][j].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row's amax over the four threads of its group
+    float v = amx[h];
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    if (t == 0) amax_part[warp][8 * h + g] = v;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float* p = part[warp] + g * R + 8 * j + 2 * t;
+    p[0] = acc[j][0];
+    p[1] = acc[j][1];
+    p[8 * R] = acc[j][2];
+    p[8 * R + 1] = acc[j][3];
+  }
+  __syncthreads();
+  if (threadIdx.x < 16) {
+    float a = amax_part[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < PW; ++w) a = fmaxf(a, amax_part[w][threadIdx.x]);
+    const float s = fmaxf(__fdiv_rn(a, 127.f), 1e-12f);
+    srow[threadIdx.x] = s;
+    if (row0 + threadIdx.x < M) sx[row0 + threadIdx.x] = s;
+  }
+  for (int e = 2 * threadIdx.x; e < 16 * R; e += 2 * PW * 32) {
+    const long long row = row0 + e / R;
+    if (row >= M) continue;
+    float v0 = part[0][e], v1 = part[0][e + 1];
+#pragma unroll
+    for (int w = 1; w < PW; ++w) {
+      v0 = __fadd_rn(v0, part[w][e]);
+      v1 = __fadd_rn(v1, part[w][e + 1]);
+    }
+    *reinterpret_cast<uint32_t*>(xa + row * R + e % R) =
+        pack_bf16(__fmul_rn(scale, v0), __fmul_rn(scale, v1));
+  }
+  __syncthreads();
+  // pass 2: the same bytes of x, the last read first, quantized with their
+  // row's scale
+  auto quantized = [](const uint4& v, float s) {
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      w[j / 4] |= (uint32_t)(quant(__bfloat162float(e[j]), s) & 0xff) << (8 * (j % 4));
+    return make_uint2(w[0], w[1]);
+  };
+  const float s_row[2] = {srow[g], srow[8 + g]};
+  for (int i0 = mine - 1; i0 >= 0; i0 -= U2) {
+    uint4 xv[U2][2];
+#pragma unroll
+    for (int u = 0; u < U2; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xv[u][h] = i0 - u >= 0 && live[h] ? ld(xr[h] + (warp + PW * (i0 - u)) * 32) : zero;
+#pragma unroll
+    for (int u = 0; u < U2; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (i0 - u >= 0 && live[h])
+          *reinterpret_cast<uint2*>(xq + (row0 + 8 * h + g) * K + (warp + PW * (i0 - u)) * 32 +
+                                    8 * t) = quantized(xv[u][h], s_row[h]);
+  }
+}
+
+template <int NT>
+int launch_prep(const bf16* x, const bf16* la, int8_t* xq, float* sx, bf16* xa, int m, int k,
+                float scale, cudaStream_t stream) {
+  lora_prep_kernel<NT><<<(m + 15) / 16, PW * 32, 0, stream>>>(x, la, xq, sx, xa, m, k, scale);
+  return (int)cudaGetLastError();
+}
+
 // The mainloop's two operations (gemm_sm90.cuh): rows() reads what the
 // epilogue needs of a thread's rows (row, row + 8), pair() gives the bf16
 // pairs of its columns col, col + 1 in those rows from d[4j .. 4j + 3] (the
@@ -384,6 +340,7 @@ __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
 struct S8Scaled {
   using Acc = int;
   static constexpr int ELEM = 1;
+  static constexpr bool LORA = false;
   struct Params {
     const float* sx;
     const float* sw;
@@ -408,10 +365,44 @@ struct S8Scaled {
   }
 };
 
+// K5: K4's sums and scaling with the low-rank step (gemm_sm90.cuh): y =
+// bf16((acc * s_x) * s_w) widened to fp32 (the plain version's rounding
+// point), then + xa . lora_b^T on the tensor cores, rounded to bf16 once.
+struct S8ScaledLoRA {
+  using Acc = int;
+  static constexpr int ELEM = 1;
+  static constexpr bool LORA = true;
+  struct Params {
+    CUtensorMap txa;  // xa (M, r) bf16, boxes of row_bytes x 128 rows
+    CUtensorMap tlb;  // lora_b (N, r) bf16, boxes of row_bytes x 256 rows
+    const float* sx;
+    const float* sw;
+    int ksteps;     // ceil(r / 16): the k16 steps that reach a nonzero column
+    int row_bytes;  // 32, 64 or 128 bytes (16, 32 or 64 columns) for r up to 16, 32 or 64
+  };
+  using Rows = S8Scaled::Rows;
+  static __device__ __forceinline__ void mma(int (&d)[128], uint64_t da, uint64_t db, int sd) {
+    S8Scaled::mma(d, da, db, sd);
+  }
+  static __device__ __forceinline__ Rows rows(const Params& p, int row, int m) {
+    return S8Scaled::rows({p.sx, p.sw}, row, m);
+  }
+  static __device__ __forceinline__ void lora_y(const Params& p, const Rows& r,
+                                                const int (&d)[128], int j, int col, int n,
+                                                float (&y)[128]) {
+    const float w0 = col < n ? p.sw[col] : 0.f, w1 = col + 1 < n ? p.sw[col + 1] : 0.f;
+    y[4 * j] = __bfloat162float(S8Scaled::scaled(d[4 * j], r.a, w0));
+    y[4 * j + 1] = __bfloat162float(S8Scaled::scaled(d[4 * j + 1], r.a, w1));
+    y[4 * j + 2] = __bfloat162float(S8Scaled::scaled(d[4 * j + 2], r.b, w0));
+    y[4 * j + 3] = __bfloat162float(S8Scaled::scaled(d[4 * j + 3], r.b, w1));
+  }
+};
+
 // K6: bf16 x bf16 -> f32, rounded to bf16.
 struct Bf16Plain {
   using Acc = float;
   static constexpr int ELEM = 2;
+  static constexpr bool LORA = false;
   struct Params {};
   struct Rows {};
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db, int sd) {
@@ -456,17 +447,42 @@ extern "C" int sam3_int8_gemm(const void* x, void* xq, void* sx, const void* wq,
   return sm90::launch<S8Scaled>(xq, wq, out, p, m, n, k, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int sam3_int8_lora_gemm(const void* x, const void* wq, const void* ws,
-                                   const void* la, const void* lb, void* out, int m, int n,
-                                   int k, int r, float scale, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % TK || r <= 0 || r % 8 || r > MAX_RP)
+// K5: out (m, n) bf16 = K4's product + xa . lb^T with xa = bf16(scale * x .
+// la^T): one pass writes xq (m, k) int8, sx (m,) fp32 (K4's quantization)
+// and xa (m, r) bf16, then the s8 mainloop with the low-rank step.
+extern "C" int sam3_int8_lora_gemm(const void* x, void* xq, void* sx, void* xa, const void* wq,
+                                   const void* ws, const void* la, const void* lb, void* out,
+                                   int m, int n, int k, int r, float scale, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 32 || n % 8 || r <= 0 || r % 8 || r > MAX_RANK)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
-  int8_lora_gemm_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(wq),
-      static_cast<const float*>(ws), static_cast<const bf16*>(la),
-      static_cast<const bf16*>(lb), static_cast<bf16*>(out), m, n, k, r, scale);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const bf16* lap = static_cast<const bf16*>(la);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sp = static_cast<float*>(sx);
+  bf16* xap = static_cast<bf16*>(xa);
+  int err;
+  switch (r / 8) {
+    case 1: err = launch_prep<1>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    case 2: err = launch_prep<2>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    case 3: err = launch_prep<3>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    case 4: err = launch_prep<4>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    case 5: err = launch_prep<5>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    case 6: err = launch_prep<6>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    case 7: err = launch_prep<7>(xp, lap, q, sp, xap, m, k, scale, st); break;
+    default: err = launch_prep<8>(xp, lap, q, sp, xap, m, k, scale, st); break;
+  }
+  if (err) return err;
+  S8ScaledLoRA::Params p{};
+  p.sx = static_cast<const float*>(sx);
+  p.sw = static_cast<const float*>(ws);
+  p.ksteps = (r + 15) / 16;
+  p.row_bytes = r <= 16 ? 32 : r <= 32 ? 64 : 128;  // the boxes: 16, 32 or 64 columns
+  err = (int)sm90::bind_primary_context();  // the maps are encoded here, before launch's
+  if (!err) err = sm90::make_map(&p.txa, xa, m, r, 2, sm90::BM, p.row_bytes);
+  if (!err) err = sm90::make_map(&p.tlb, lb, n, r, 2, sm90::BN, p.row_bytes);
+  if (err) return err;
+  return sm90::launch<S8ScaledLoRA>(xq, wq, out, p, m, n, k, st);
 }
 
 // out (k, n) bf16 = (wq (n, k) int8 * ws[:, None])^T

@@ -38,6 +38,18 @@
 // 32-byte K step advances the start address by 2 (16-byte units). The
 // barriers, TMA, descriptors and register controls are sm90.cuh's, shared
 // with the attention backward.
+//
+// An Op with LORA = true (K5's) adds a low-rank step to each tile: after the
+// tile's last K block the producer loads one more ring slot, the tile's 128
+// rows of xa (M, r) and 256 rows of lora_b (N, r) after them, both bf16 in
+// boxes p.row_bytes wide (32, 64 or 128 bytes for r up to 16, 32 or 64,
+// swizzled as wide; TMA fills the columns past r with zeros), and sets that
+// slot's expect_tx to their bytes; the consumers turn their int32 sums
+// into the fp32 values Op::lora_y gives (K5: bf16(acc s_x s_w), widened),
+// run ceil(r / 16) wgmma m64n256k16 bf16 steps on that slot accumulating
+// onto them in the same registers, release the slot and store the bf16 tile
+// as K4 does. Each tile so takes kblocks + 1 slots on both sides of the ring.
+// K4's and K6's instances (LORA = false) compile none of it.
 
 #pragma once
 
@@ -145,6 +157,11 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// Two fp32 values rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 // ---- the kernel
 
@@ -152,11 +169,15 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, ui
 // 32-byte K step), Params, Rows rows(p, row, m) (what the epilogue needs of
 // a thread's rows row and row + 8) and pair(p, rows, d, j, col, n, lo, hi):
 // the bf16 pairs of columns col, col + 1 of those two rows from d[4j..4j+3].
+// LORA: whether the tile ends with the low-rank step; an Op with it also
+// has lora_y(p, rows, d, j, col, n, y) (y[4j..4j+3] from d[4j..4j+3]) and
+// Params members txa, tlb (the TMA maps of xa and lora_b), ksteps and
+// row_bytes.
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
-            const __grid_constant__ CUtensorMap tc, const typename Op::Params p, int m, int n,
-            int k) {
+            const __grid_constant__ CUtensorMap tc, const __grid_constant__ typename Op::Params p,
+            int m, int n, int k) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (cvta_smem(smem_raw) + 1023u) & ~1023u;
   const uint32_t c_tile = base + STAGES * STAGE_BYTES;
@@ -193,6 +214,16 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
           mbar_expect_tx(full(s), STAGE_BYTES);
           tma_load_2d(a_stage(s), &ta, full(s), kb * KE, m0);
           tma_load_2d(b_stage(s), &tb, full(s), kb * KE, n0);
+          if (++s == STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+        if constexpr (Op::LORA) {  // the tile's low-rank operands: one more slot
+          mbar_wait(empty(s), ph ^ 1);
+          mbar_expect_tx(full(s), (BM + BN) * p.row_bytes);
+          tma_load_2d(a_stage(s), &p.txa, full(s), 0, m0);
+          tma_load_2d(a_stage(s) + BM * p.row_bytes, &p.tlb, full(s), 0, n0);
           if (++s == STAGES) {
             s = 0;
             ph ^= 1;
@@ -238,16 +269,55 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
       // epilogue: once the last tile's stores have read the output tile,
       // write this one there (128-byte swizzle: 16-byte chunk c of row r at
       // c ^ (r % 8)) and store it
-      if (leader) bulk_wait_read();
-      warpgroup_sync(1 + cw);
-      const typename Op::Rows rows = Op::rows(p, m0 + cw * 64 + r0, m);
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        uint32_t lo, hi;
-        Op::pair(p, rows, acc, j, n0 + 8 * j + 2 * (lane % 4), n, lo, hi);
+      auto put = [&](int j, uint32_t lo, uint32_t hi) {
         const uint32_t at = c_own + (j / 8) * 8192 + (((j % 8) ^ (r0 % 8)) << 4) + 4 * (lane % 4);
         st_shared_u32(at + r0 * 128, lo);
         st_shared_u32(at + (r0 + 8) * 128, hi);
+      };
+      if constexpr (Op::LORA) {
+        // the low-rank step: y (fp32, in place of the int32 sums as far as
+        // the register allocator goes) += xa . lora_b^T over the slot; the
+        // ordinary writes of y are pinned before the fence that orders them
+        // ahead of the wgmma that accumulates onto them
+        const typename Op::Rows rows = Op::rows(p, m0 + cw * 64 + r0, m);
+        float y[128];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) Op::lora_y(p, rows, acc, j, n0 + 8 * j + 2 * (lane % 4), n, y);
+        fence_regs(y);
+        mbar_wait(full(s), ph);
+        wgmma_fence();
+        const uint64_t da = swizzled_desc(a_stage(s) + cw * 64 * p.row_bytes, p.row_bytes);
+        const uint64_t db = swizzled_desc(a_stage(s) + BM * p.row_bytes, p.row_bytes);
+#pragma unroll
+        for (int kk = 0; kk < KBYTES / 32; ++kk)
+          if (kk < p.ksteps) wgmma_bf16_n256(y, da + 2 * kk, db + 2 * kk, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(y);
+        if (leader) mbar_arrive(empty(s));
+        if (++s == STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+        if (leader) bulk_wait_read();
+        warpgroup_sync(1 + cw);
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          put(j, bf16x2(y[4 * j], y[4 * j + 1]), bf16x2(y[4 * j + 2], y[4 * j + 3]));
+        // the sums' registers carry y's bits to the next tile's first wgmma,
+        // which overwrites them (scale_d = 0): the old sums die here
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = __float_as_int(y[i]);
+      } else {
+        if (leader) bulk_wait_read();
+        warpgroup_sync(1 + cw);
+        const typename Op::Rows rows = Op::rows(p, m0 + cw * 64 + r0, m);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          uint32_t lo, hi;
+          Op::pair(p, rows, acc, j, n0 + 8 * j + 2 * (lane % 4), n, lo, hi);
+          put(j, lo, hi);
+        }
       }
       fence_async_smem();
       warpgroup_sync(1 + cw);
@@ -264,19 +334,23 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 // ---- host side
 
 // The TMA map of a row-major (rows, cols) operand with `elem`-byte elements,
-// cut into boxes of 128 bytes of a row by box_rows rows, 128-byte swizzle;
-// reads out of range fill zeros. 0, or a cudaError_t.
+// cut into boxes of box_bytes (128, 64 or 32) bytes of a row by box_rows
+// rows, swizzled as wide; reads out of range fill zeros. 0, or a
+// cudaError_t.
 inline int make_map(CUtensorMap* map, const void* ptr, long long rows, long long cols, int elem,
-                    int box_rows) {
+                    int box_rows, int box_bytes = KBYTES) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)(cols * elem)};
-  const cuuint32_t box[2] = {(cuuint32_t)(KBYTES / elem), (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / elem), (cuuint32_t)box_rows};
   const cuuint32_t estrides[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         2, const_cast<void*>(ptr), dims, strides, box, estrides,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }

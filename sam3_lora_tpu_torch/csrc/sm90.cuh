@@ -146,6 +146,14 @@ __device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
          ((uint64_t)2 << 62);
 }
 
+// The same for row_bytes-byte rows (32, 64 or 128) in the swizzle of that
+// width: 8-row groups 8 * row_bytes apart, layout 3, 2 or 1.
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t saddr, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(row_bytes / 2) << 32) | (layout << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

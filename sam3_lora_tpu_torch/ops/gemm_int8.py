@@ -8,7 +8,11 @@ of the JAX package's ``ops/gemm_int8.py``.
   mainloop of ``csrc/gemm_sm90.cuh`` (``int8_dot``, then the row and column
   scales).
 * ``int8_lora_gemm_wres`` (K5): K4 + scale * ((x A^T) B^T), the adapter
-  products in the compute dtype with fp32 accumulation.
+  products in the compute dtype with fp32 accumulation. On the card, two
+  launches: one pass over x writes K4's row quantization and xa =
+  bf16(scale * x A^T) (M, r), then the s8 mainloop with a low-rank step at
+  the end of each tile (y, K4's bf16 output widened to fp32, plus xa B^T on
+  the tensor cores).
 * ``bf16_gemm_wres_nt`` (K6): dx = dy . dequant(W_q, s_w), fp32 accumulation.
   On the card, two launches: ``dequantize_t`` (W_deq^T, (K, N) bf16) and the
   bf16 mainloop of ``csrc/gemm_sm90.cuh``.
@@ -66,7 +70,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn, args in ((lib.sam3_quant_rows, [ptr] * 3 + [i32] * 2 + [ptr]),
                      (lib.sam3_int8_gemm, [ptr] * 6 + [i32] * 3 + [ptr]),
-                     (lib.sam3_int8_lora_gemm, [ptr] * 6 + [i32] * 4 + [ctypes.c_float, ptr]),
+                     (lib.sam3_int8_lora_gemm, [ptr] * 9 + [i32] * 4 + [ctypes.c_float, ptr]),
                      (lib.sam3_dequant_t, [ptr] * 3 + [i32] * 2 + [ptr]),
                      (lib.sam3_bf16_gemm_nt, [ptr] * 5 + [i32] * 3 + [ptr])):
         fn.argtypes, fn.restype = args, i32
@@ -160,6 +164,25 @@ def check_gemm_shape(m: int, k: int, n: int) -> None:
         raise ValueError(f"K4 needs M >= 0, got M = {m}")
 
 
+def check_lora_shape(m: int, k: int, n: int, r: int) -> None:
+    """Raise unless K5 takes x (M, K) against W_q (N, K) with adapters of
+    rank r: K4's shapes, and r % 8 == 0 (the 16-byte rows of xa (M, r) and
+    lora_b (N, r) that its TMA loads) with 0 < r <= MAX_RANK (at most one
+    64-column box of each)."""
+    check_gemm_shape(m, k, n)
+    if r <= 0 or r % 8 or r > MAX_RANK:
+        raise ValueError(f"K5 needs rank % 8 == 0 and 0 < rank <= {MAX_RANK}, got {r}")
+
+
+def k5_scratch_layout(m: int, k: int, r: int):
+    """K5's scratch in one byte buffer: xq (M, K) int8 at 0, s_x (M,) fp32
+    at M K, xa (M, r) bf16 at the next 16-byte boundary (TMA reads it).
+    Returns (s_x's offset, xa's offset, total bytes)."""
+    sx_at = m * k  # K % 32 == 0: 16-byte aligned
+    xa_at = (sx_at + 4 * m + 15) // 16 * 16
+    return sx_at, xa_at, xa_at + 2 * m * r
+
+
 def check_nt_shape(m: int, n: int, k: int) -> None:
     """Raise unless K6 takes dy (M, N) against W_q (N, K): K % 32 == 0 and
     N % 32 == 0 (the contraction N runs along 16-byte aligned bf16 rows of
@@ -215,12 +238,13 @@ def int8_gemm_wres_cuda(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> 
 
 
 def int8_lora_gemm_wres_cuda(x, wq, ws, a, b, scale: float) -> torch.Tensor:
-    """Launch K5: K4's operands plus a (r, K) and b (N, r) bf16."""
+    """Launch K5 on K4's operands plus a (r, K) and b (N, r) bf16: one pass
+    writes the row quantization and xa into scratch (xq, s_x, xa (M, r)),
+    then the s8 mainloop with the low-rank step. The scratch is one byte
+    buffer (``k5_scratch_layout``): one allocation where K4 makes two."""
     m, k = x.shape
     n, r = wq.shape[0], a.shape[0]
-    _check_k(k)
-    if r % 8 or r > MAX_RANK:
-        raise ValueError(f"K5 needs rank % 8 == 0 and rank <= {MAX_RANK}, got {r}")
+    check_lora_shape(m, k, n, r)
     _check("x", x, torch.bfloat16, (m, k))
     _check("wq", wq, torch.int8, (n, k))
     _check("ws", ws, torch.float32, (n,))
@@ -228,9 +252,13 @@ def int8_lora_gemm_wres_cuda(x, wq, ws, a, b, scale: float) -> torch.Tensor:
     _check("lora_b", b, torch.bfloat16, (n, r))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m:
+        sx_at, xa_at, nbytes = k5_scratch_layout(m, k, r)
+        scratch = torch.empty((nbytes,), dtype=torch.uint8, device=x.device)
+        base = scratch.data_ptr()
         _raise_on(_library().sam3_int8_lora_gemm(
-            x.data_ptr(), wq.data_ptr(), ws.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), m, n, k, r, float(scale), _stream(x)), "sam3_int8_lora_gemm")
+            x.data_ptr(), base, base + sx_at, base + xa_at, wq.data_ptr(), ws.data_ptr(),
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, r, float(scale), _stream(x)),
+            "sam3_int8_lora_gemm")
     return out
 
 

@@ -11,11 +11,14 @@ name), builds its own kernels from its own sources and trains with its own
 ``measure.profile_step`` whatever the tree. Per run it prints, and appends to
 ``--out`` as one JSON line:
 
-* ``gemm``: at fc1 (K 1024, N 4736) with M = 20736 (batch 4) and 41472
-  (bench.py's batch 8), the median CUDA-event ms of the tree's K4 and K6
-  wrappers, ``torch._int_mm`` on the same int8 operands, bf16
-  ``torch.matmul`` of x against the dequantized weight and
-  ``torch.matmul(dy, w_deq)``; K4 held bit for bit to its plain version;
+* ``gemm``: at qkv, fc1 and fc2 with M = 5184 (one image), at fc1 with
+  M = 20736 (batch 4) and 41472 (bench.py's batch 8), the median CUDA-event
+  ms of the tree's K4, K5 (rank 8, scale 2) and K6 wrappers, the unfused
+  chain (K4, the two adapter products, the add), ``torch._int_mm`` on the
+  same int8 operands, bf16 ``torch.matmul`` of x against the dequantized
+  weight and ``torch.matmul(dy, w_deq)``; the device us a call of K4, K5
+  and K6 (all their kernels, one profile of 10 calls each); K4 held bit for
+  bit to its plain version;
 * ``fwd``: the tree's ``attention_packed_cuda`` with ``with_lse`` (as
   training calls it) at bench.py's batch 8: K1 (72 windows x 16 heads x 576
   x 64, RoPE), K2 (8 x 16 x 5184 x 64, RoPE) and K3 (8 x 8 x 5184 x 32): its
@@ -38,6 +41,8 @@ name), builds its own kernels from its own sources and trains with its own
   share.
 
 Seeds are fixed, so every tree sees the same operands and samples.
+``--phases`` runs a subset (``--phases gemm`` takes a few seconds a tree
+after its build).
 """
 
 from __future__ import annotations
@@ -78,25 +83,49 @@ def _profile_step():
     return mod.profile_step
 
 
-def gemm_rows(torch, gemm_int8, quant, median_ms):
+GEMM_CASES = (("qkv", 5184, 1024, 3072), ("fc1", 5184, 1024, 4736), ("fc2", 5184, 4736, 1024),
+              ("fc1", 20736, 1024, 4736), ("fc1", 41472, 1024, 4736))
+
+
+def device_us(profile_step, fn, calls: int = 10) -> float:
+    """The device us of one call of ``fn``: every kernel of ``calls`` calls
+    in one profile."""
+    fn()
+    return profile_step(lambda: [fn() for _ in range(calls)])["device_ms"] * 1e3 / calls
+
+
+def gemm_rows(torch, gemm_int8, quant, median_ms, profile_step):
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    k, n = 1024, 4736
-    for m in (20736, 41472):
+    for layer, m, k, n in GEMM_CASES:
         x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
         wq, ws = quant.quantize_weight(torch.randn(n, k, generator=g, device="cuda") / k ** 0.5)
         dy = torch.randn(m, n, generator=g, device="cuda").to(torch.bfloat16)
+        a = (torch.randn(8, k, generator=g, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        b = (0.02 * torch.randn(n, 8, generator=g, device="cuda")).to(torch.bfloat16)
         w_deq = gemm_int8.dequantize(wq, ws, torch.bfloat16)
         xq = gemm_int8.quant_rows(x)[0]
         exact = torch.equal(gemm_int8.int8_gemm_wres(x, wq, ws), gemm_int8.int8_gemm_wres_plain(x, wq, ws))
-        rows.append({"layer": "fc1", "M": m, "K": k, "N": n, "k4_bit_exact": exact,
-                     "k4_ms": median_ms(lambda: gemm_int8.int8_gemm_wres(x, wq, ws)),
+
+        def unfused():
+            delta = torch.nn.functional.linear(torch.nn.functional.linear(x, a).float(), b.float())
+            return gemm_int8.int8_gemm_wres(x, wq, ws) + (delta * 2.0).to(x.dtype)
+
+        k4 = lambda: gemm_int8.int8_gemm_wres(x, wq, ws)  # noqa: E731
+        k5 = lambda: gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 2.0)  # noqa: E731
+        k6 = lambda: gemm_int8.bf16_gemm_wres_nt(dy, wq, ws)  # noqa: E731
+        rows.append({"layer": layer, "M": m, "K": k, "N": n, "k4_bit_exact": exact,
+                     "k4_ms": median_ms(k4), "k5_ms": median_ms(k5),
+                     "k4_device_us": device_us(profile_step, k4),
+                     "k5_device_us": device_us(profile_step, k5),
+                     "k6_device_us": device_us(profile_step, k6),
+                     "unfused_ms": median_ms(unfused),
                      "int_mm_ms": median_ms(lambda: torch._int_mm(xq, wq.t())),
                      "bf16_mm_ms": median_ms(lambda: torch.matmul(x, w_deq.t())),
-                     "k6_ms": median_ms(lambda: gemm_int8.bf16_gemm_wres_nt(dy, wq, ws)),
+                     "k6_ms": median_ms(k6),
                      "dy_w_deq_ms": median_ms(lambda: torch.matmul(dy, w_deq))})
         print(json.dumps(rows[-1]), flush=True)
-        del x, wq, ws, dy, w_deq, xq
+        del x, wq, ws, dy, a, b, w_deq, xq
         torch.cuda.empty_cache()
     return rows
 
@@ -242,7 +271,10 @@ def profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch: int) -> dict
     return res
 
 
-def worker(tree: str, out: str) -> None:
+PHASES = ("gemm", "fwd", "bwd", "train", "train_int8", "bench")
+
+
+def worker(tree: str, out: str, phases) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -261,13 +293,19 @@ def worker(tree: str, out: str) -> None:
     from sam3_lora_tpu_torch.ops import attention_kernel
 
     profile_step = _profile_step()
-    res = {"tree": tree, "device": smi, "gemm": gemm_rows(torch, gemm_int8, quant, median_ms),
-           "fwd": fwd_rows(torch, attention_kernel, median_ms, profile_step),
-           "bwd": bwd_rows(torch, attention_kernel, median_ms, profile_step)}
+    res = {"tree": tree, "device": smi}
+    if "gemm" in phases:
+        res["gemm"] = gemm_rows(torch, gemm_int8, quant, median_ms, profile_step)
+    if "fwd" in phases:
+        res["fwd"] = fwd_rows(torch, attention_kernel, median_ms, profile_step)
+    if "bwd" in phases:
+        res["bwd"] = bwd_rows(torch, attention_kernel, median_ms, profile_step)
     for phase, cfg, lora, batch in (
             ("train", chip_smoke.model_config(False), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
             ("train_int8", chip_smoke.model_config(True), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
             ("bench", bench_model_config(), bench_lora_config(), chip_smoke.BENCH_BATCH)):
+        if phase not in phases:
+            continue
         gemm_int8.GEMM_BWD_KERNEL = phase == "train_int8"  # as chip_smoke's train-int8
         res[phase] = profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch)
     gemm_int8.GEMM_BWD_KERNEL = False
@@ -282,15 +320,17 @@ def main() -> None:
     ap.add_argument("--trees", nargs="+", help="checkouts to run, in this order")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--out", default="step_ab.jsonl", help="JSON lines, appended")
+    ap.add_argument("--phases", nargs="+", choices=PHASES, default=list(PHASES),
+                    help="what to run in each tree (default: all)")
     args = ap.parse_args()
     out = os.path.abspath(args.out)
     if args.worker:
-        worker(args.worker, out)
+        worker(args.worker, out, args.phases)
         return
     os.makedirs(os.path.dirname(out), exist_ok=True)
     for tree in args.trees:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, "--out", out],
-                       check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, "--out", out,
+                        "--phases", *args.phases], check=True)
 
 
 if __name__ == "__main__":

@@ -408,6 +408,62 @@ def test_k5_other_ranks(gen, r):
     _assert_gemm_close(out, gemm_int8.int8_lora_gemm_wres_plain(x, wq, ws, a, b, 0.5))
 
 
+@pytest.mark.parametrize("m", [1, 16, 17, 1000])
+@pytest.mark.parametrize("r", [8, 24, 40, 64])
+def test_k5_ranks_at_ragged_rows(gen, r, m):
+    """The low-rank step at every rank class (one to four k16 steps, the
+    columns past r zero-filled) on fc1's ragged N tile (4736 = 18.5 x 256)
+    and ragged M."""
+    x, wq, ws, a, b = _int8_operands(gen, m, 1024, 4736, r)
+    out = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 1.5)
+    torch.cuda.synchronize()
+    assert out.shape == (m, 4736)
+    _assert_gemm_close(out, gemm_int8.int8_lora_gemm_wres_plain(x, wq, ws, a, b, 1.5))
+
+
+@pytest.mark.parametrize("m,k,n,r", [(17, 32, 8, 8), (300, 96, 264, 24), (130, 8192, 520, 64)])
+def test_k5_small_and_long_contractions(gen, m, k, n, r):
+    """One and three K blocks a tile (the low-rank operands loaded after the
+    last K stage), a long K (the first pass's warps walk many steps), ragged
+    M and N tiles."""
+    x, wq, ws, a, b = _int8_operands(gen, m, k, n, r)
+    out = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 0.5)
+    torch.cuda.synchronize()
+    _assert_gemm_close(out, gemm_int8.int8_lora_gemm_wres_plain(x, wq, ws, a, b, 0.5))
+
+
+def test_k5_two_launches_equal_bits_and_k4_after_it(gen):
+    """K5 is deterministic (two launches, equal bits), and K4 on the same
+    stream after it still equals its plain version bit for bit."""
+    x, wq, ws, a, b = _int8_operands(gen, 5184, 1024, 4736, 32)
+    first = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 2.0)
+    second = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 2.0)
+    y = gemm_int8.int8_gemm_wres(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(y, gemm_int8.int8_gemm_wres_plain(x, wq, ws))
+    _assert_gemm_close(first, gemm_int8.int8_lora_gemm_wres_plain(x, wq, ws, a, b, 2.0))
+
+
+@pytest.mark.parametrize("m", [1, 37, 1000, 5184])
+@pytest.mark.parametrize("k,n", [(1024, 3072), (4736, 1024)])
+def test_k5_with_zero_lora_b_equals_k4_bit_for_bit(gen, m, k, n):
+    """K5's first pass quantizes x with K4's bits and its mainloop scales the
+    sums as K4's does: with lora_b = 0 the output is K4's, bit for bit."""
+    x, wq, ws, a, b = _int8_operands(gen, m, k, n, 16)
+    out = gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, torch.zeros_like(b), 1.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gemm_int8.int8_gemm_wres(x, wq, ws))
+
+
+def test_k5_rejects_a_rank_over_64(gen):
+    x, wq, ws, a, b = _int8_operands(gen, 64, 1024, 1024, 72)
+    before = gemm_int8.int8_lora_gemm_wres.launches
+    with pytest.raises(ValueError, match="rank"):
+        gemm_int8.int8_lora_gemm_wres(x, wq, ws, a, b, 1.0)
+    assert gemm_int8.int8_lora_gemm_wres.launches == before
+
+
 @pytest.mark.parametrize("m", ROWS)
 @pytest.mark.parametrize("k,n", VIT_KN + TEXT_KN)
 def test_k6_matches_plain(gen, m, k, n):
