@@ -76,9 +76,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    with the plain version's time, the bound, a yardstick and
                    the row's own launches; the full rung bit for bit equal to
                    attention_cuda and within 10% of its time (the two timed
-                   in turns); then
+                   in turns); each op-rate row with its instruction mix per
+                   unit (window_cost.OP_MIX) beside the one its SASS issues
+                   (window_cost.op_sass), its binding unit, its share of that
+                   bound and the one-row bound it replaced; then
                    packed.check(), the pair forms against the per-head math.
-                   No row may read bound/time over 1.05.
+                   No row may read bound/time over 1.05, and no op's SASS
+                   may issue less than its mix on a unit or take longer on
+                   any unit than the mix on its binding unit
+                   (window_cost.sass_check); maxreduce and add_bf16 also
+                   run a tile whose values they change
+                   (window_cost.op_moving_input), bit for bit against
+                   op_plain.
 Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 """
 
@@ -1232,7 +1241,7 @@ def phase_small_reference(tag: str = "small", int8: bool = False, routes: bool =
 PROBES = (window_cost, dma_floor, packed)
 PROBE_REPS = 20
 PROBE_ROW_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-                  "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "table_row",
+                  "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "binding",
                   "passes", "full_paired_ms", "attention_cuda_ms")
 PROBE_BOUND_SLACK = 1.05  # bound/time above this: the kernel skipped work it claims
 PROBE_FULL_SPREAD = 0.10  # the full rung's time against attention_cuda's, timed in turns
@@ -1248,9 +1257,22 @@ def phase_probes(g: torch.Generator):
     probe_kernels.reset_counts()
     rows = [r for m in PROBES for r in m.rows(g, BENCH_BATCH, PROBE_REPS, "cuda")]
     torch.cuda.synchronize()
+    sass = window_cost.op_sass(_cuda.build())
     failed = []
     for r in rows:
         print(f"probes {format_row(r)}", flush=True)
+        if r.get("binding"):
+            op, mix = r["variant"], r["mix"]
+            print(f"probes op {op}: per lane and row pass, mix {mix} | SASS "
+                  f"{ {u: round(n, 3) for u, n in sass[op].items() if n} } | binds {r['binding']}: "
+                  f"share {r['bound_ms'] / r['ms']:.3f} | one-row bound {r['old_bound_ms']:.4f} ms "
+                  f"(share {r['old_bound_ms'] / r['ms']:.3f}) | {r['layout']}", flush=True)
+            failed += [f"{r['name']} SASS {b}" for b in window_cost.sass_check(op, sass[op])]
+            if "moving_check" in r:  # a tile the op changes, bit for bit against op_plain
+                print(f"probes {format_check(r['name'] + ' (moving)', r['moving_check'])}",
+                      flush=True)
+                if not r["moving_check"][2]:
+                    failed.append(f"{r['name']}: differs from op_plain on a tile it changes")
         if not r["ok"]:
             failed.append(f"{r['name']}: max abs err {r['max_abs_err']:.3e} over {r['limit']:.3e}")
         if r["bound_ms"] / r["ms"] > PROBE_BOUND_SLACK:

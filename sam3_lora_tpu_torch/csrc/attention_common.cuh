@@ -20,8 +20,6 @@ typedef __nv_bfloat16 bf16;
 
 namespace sam3 {
 
-constexpr int WARPS = 4;  // the probes' op kernel: 4 warps a block
-constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 

@@ -38,14 +38,26 @@ enum Stage {
 __host__ __device__ constexpr bool rescales(int stage) { return stage >= QK_MEXP; }
 
 // 2^x as the JAX probe writes it (scripts/probe_window_cost.py::fast_exp2):
-// round, a degree-4 polynomial on the fraction, the exponent put in by bits.
+// xi = clip(rint(x), -126, 127), a degree-4 polynomial on f = x - xi, and
+// 2^xi put in by bits; lowered with full-rate instructions only. x is
+// clamped first (rint of the clamped value is the clamp of rint(x)), then
+// rounded by adding 1.5 * 2^23: on [-126, 127] the sum s lies in [2^23,
+// 2^24), where the spacing is 1, so the addition rounds to the nearest
+// integer, ties to even, and xi = s - 1.5 * 2^23 is exact (__fadd_rn: the
+// two additions are never folded).
+// s's bits are 0x4b400000 + xi, so (s's bits << 23) + (127 << 23) is
+// (xi + 127) << 23 modulo 2^32, one shift-add. No FRND or F2I (the
+// conversion rate, 16 a clock per SM), and bit for bit the value of
+// clip(rintf(x)) for every x (NaN included: fmaxf takes -126).
 __device__ __forceinline__ float fast_exp2(float x) {
-  const float xi = fminf(fmaxf(rintf(x), -126.f), 127.f);
+  constexpr float ROUND = 12582912.f;  // 1.5 * 2^23
+  const float s = __fadd_rn(fminf(fmaxf(x, -126.f), 127.f), ROUND);
+  const float xi = __fadd_rn(s, -ROUND);
   const float f = x - xi;
   const float p = 1.f + f * (0.6931471805599453f +
                              f * (0.2402265069591007f +
                                   f * (0.05550410866482158f + f * 0.009618129107628477f)));
-  return p * __int_as_float((static_cast<int>(xi) + 127) << 23);
+  return p * __uint_as_float((__float_as_uint(s) << 23) + (127u << 23));
 }
 
 __device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {

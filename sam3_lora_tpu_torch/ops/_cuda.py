@@ -48,6 +48,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def tool(name: str) -> str:
+    """A program of the CUDA toolkit beside nvcc (``cuobjdump``, ...)."""
+    path = os.path.join(os.path.dirname(_nvcc()), name)
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name} not found beside {_nvcc()}")
+    return path
+
+
 def _run(procs) -> None:
     failed = []
     for cmd, proc in procs:

@@ -53,6 +53,8 @@ def _library() -> ctypes.CDLL:
     lib.sam3_probe_stage.restype = i32
     lib.sam3_probe_op.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.sam3_probe_op.restype = i32
+    lib.sam3_probe_op_layout.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.sam3_probe_op_layout.restype = i32
     return lib
 
 
@@ -203,6 +205,8 @@ def op_rate(x: torch.Tensor, name: str, passes: int) -> torch.Tensor:
     if not x.is_contiguous() or passes < 0:
         raise ValueError("op_rate takes a contiguous tile and passes >= 0")
     y = torch.empty_like(x)
+    if x.shape[0] == 0:  # nothing to launch, nothing counted
+        return y
     err = _library().sam3_probe_op(x.data_ptr(), y.data_ptr(), x.shape[0], OPS.index(name),
                                    passes, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -212,6 +216,20 @@ def op_rate(x: torch.Tensor, name: str, passes: int) -> torch.Tensor:
 
 
 op_rate.launches = collections.Counter()
+
+OP_LAYOUT = ("unroll", "rows_per_warp", "grid", "warps", "smem", "ctas_per_sm")
+
+
+def op_layout(name: str, rows: int) -> dict:
+    """How ``op_rate`` runs op ``name`` over ``rows`` rows on the current
+    card: passes an iteration of its main pass loop (``unroll``), rows a
+    warp, the grid, warps a CTA, the CTA's dynamic shared bytes (the cap on
+    CTAs an SM) and CTAs an SM (``csrc/probe_window.cu::op_launch``)."""
+    out = (ctypes.c_int * len(OP_LAYOUT))()
+    err = _library().sam3_probe_op_layout(OPS.index(name), rows, out)
+    if err != 0:
+        raise RuntimeError(f"sam3_probe_op_layout failed: cudaError {err}")
+    return dict(zip(OP_LAYOUT, out))
 
 
 def pair_bwd_plain(q, k, v, do, scale: float):

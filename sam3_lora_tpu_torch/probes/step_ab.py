@@ -33,6 +33,12 @@ name), builds its own kernels from its own sources and trains with its own
   backward of one ``scaled_dot_product_attention`` call on the same (rotated)
   operands, with dv's largest difference from the library's relative to
   max |dv| (dq and dk are taken with respect to other inputs under RoPE);
+* ``ops``: the tree's op-rate probe (``probe_kernels.op_rate``) over the
+  16-tile (9216 x 576) input, every op at the passes this checkout's
+  ``window_cost.op_passes`` gives it (the same in every tree): its median
+  CUDA-event ms and a digest of its output's bits; and a digest of one
+  fast_exp2_f32 pass over 2^x's range ([-300, 300], the x.5 ties, the clamp
+  edges), so two trees' fast_exp2 lowerings are held bit for bit;
 * ``train``, ``train_int8``, ``bench``: chip_smoke's train phase at batch 4
   (bf16; the int8 tier with ``GEMM_BWD_KERNEL`` on) and bench-train at batch
   8 (``bench_model_config``, ``bench_lora_config``): four steps (the first
@@ -41,13 +47,14 @@ name), builds its own kernels from its own sources and trains with its own
   share.
 
 Seeds are fixed, so every tree sees the same operands and samples.
-``--phases`` runs a subset (``--phases gemm`` takes a few seconds a tree
-after its build).
+``--phases`` runs a subset (``--phases gemm`` or ``--phases ops`` takes a
+few seconds a tree after its build).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -223,6 +230,55 @@ def bwd_rows(torch, ak, median_ms, profile_step):
     return rows
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of an fp32 or bf16 tensor's bits."""
+    import torch
+
+    bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    return hashlib.sha256(bits.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def fexp_input(torch):
+    """-v for v over fast_exp2's range: [-300, 300] by 2^-6, the ties k + 0.5,
+    the clamp edges and their neighbours, as (rows, 576) fp32 rows."""
+    v = torch.cat([torch.arange(-300 * 64, 300 * 64 + 1) / 64.0,
+                   torch.arange(-140, 141) + 0.5,
+                   torch.tensor([-126.5, -126.0, -125.5, 126.5, 127.0, 127.5, -0.0, 0.0])])
+    v = torch.cat([v, v.nextafter(torch.tensor(float("inf"))),
+                   v.nextafter(torch.tensor(float("-inf")))])
+    v = torch.cat([v, v.new_zeros(-len(v) % 576)])
+    return (-v).view(-1, 576).cuda()
+
+
+def op_rows(torch, pk, median_ms, passes: dict):
+    """The op-rate probe of the tree at the given passes (``ops`` above)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x32 = torch.randn(16 * 576, 576, generator=g, device="cuda").abs() + 0.5
+    rows = []
+    for name, n in passes.items():
+        x = x32.to(pk.op_dtype(name))
+        y = pk.op_rate(x, name, n)
+        rows.append({"op": name, "passes": n, "ms": median_ms(lambda: pk.op_rate(x, name, n)),
+                     "digest": digest(y)})
+        print(json.dumps(rows[-1]), flush=True)
+    rows.append({"op": "fast_exp2_f32 range", "passes": 1,
+                 "digest": digest(pk.op_rate(fexp_input(torch), "fast_exp2_f32", 1))})
+    print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def op_passes() -> dict:
+    """This checkout's passes for each op over the 16-tile input."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    from sam3_lora_tpu_torch.ops.probe_kernels import OPS
+    from sam3_lora_tpu_torch.probes import window_cost as wc
+
+    sms, clock = wc.n_sms(), wc.sm_clock_hz()
+    return {name: wc.op_passes(name, 16 * 576 * 576, sms, clock) for name in OPS}
+
+
 def profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch: int) -> dict:
     """STEPS training steps of the tree's Trainer at ``cfg`` and ``batch``,
     adapters drawn live, then a profiled step."""
@@ -271,10 +327,10 @@ def profiled_fit(torch, chip_smoke, profile_step, cfg, lora, batch: int) -> dict
     return res
 
 
-PHASES = ("gemm", "fwd", "bwd", "train", "train_int8", "bench")
+PHASES = ("gemm", "fwd", "bwd", "ops", "train", "train_int8", "bench")
 
 
-def worker(tree: str, out: str, phases) -> None:
+def worker(tree: str, out: str, phases, passes=None) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -283,7 +339,7 @@ def worker(tree: str, out: str, phases) -> None:
     import chip_smoke
     from sam3_lora_tpu_torch.config import bench_lora_config, bench_model_config
     from sam3_lora_tpu_torch.measure import median_ms
-    from sam3_lora_tpu_torch.ops import _cuda, gemm_int8, quant
+    from sam3_lora_tpu_torch.ops import _cuda, gemm_int8, probe_kernels, quant
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -300,6 +356,8 @@ def worker(tree: str, out: str, phases) -> None:
         res["fwd"] = fwd_rows(torch, attention_kernel, median_ms, profile_step)
     if "bwd" in phases:
         res["bwd"] = bwd_rows(torch, attention_kernel, median_ms, profile_step)
+    if "ops" in phases:
+        res["ops"] = op_rows(torch, probe_kernels, median_ms, passes)
     for phase, cfg, lora, batch in (
             ("train", chip_smoke.model_config(False), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
             ("train_int8", chip_smoke.model_config(True), chip_smoke.LORA, chip_smoke.TRAIN_BATCH),
@@ -319,18 +377,22 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="checkouts to run, in this order")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--op-passes", help=argparse.SUPPRESS)
     ap.add_argument("--out", default="step_ab.jsonl", help="JSON lines, appended")
     ap.add_argument("--phases", nargs="+", choices=PHASES, default=list(PHASES),
                     help="what to run in each tree (default: all)")
     args = ap.parse_args()
     out = os.path.abspath(args.out)
     if args.worker:
-        worker(args.worker, out, args.phases)
+        worker(args.worker, out, args.phases, json.loads(args.op_passes or "null"))
         return
     os.makedirs(os.path.dirname(out), exist_ok=True)
+    extra = []
+    if "ops" in args.phases:  # one set of passes for every tree
+        extra = ["--op-passes", json.dumps(op_passes())]
     for tree in args.trees:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, "--out", out,
-                        "--phases", *args.phases], check=True)
+                        "--phases", *args.phases, *extra], check=True)
 
 
 if __name__ == "__main__":

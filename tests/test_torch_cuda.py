@@ -18,8 +18,11 @@ bf16 ulps at the largest output). K4 is held equal bit for bit (the same
 int8 values, an exact int32 sum, the same fp32 scaling); K5 and K6 within
 8e-3 * max |plain|, one bf16 ulp of the largest output (the bf16 products'
 sums run in another order). The window-kernel probes (``ops/probe_kernels.py``):
-every stage rung and op rate against its plain version, the full rung bit
-for bit equal to the production forward, the packed layout's backward."""
+every stage rung and op rate against its plain version (the op rates also
+at passes around the kernel's unroll and ragged row counts, with their
+launch layout and their SASS against ``window_cost.OP_MIX``), the full rung
+bit for bit equal to the production forward, the packed layout's
+backward."""
 
 import numpy as np
 import pytest
@@ -652,6 +655,62 @@ def test_probe_ops_match_plain(gen, name):
     ref = probe_kernels.op_plain(x, name, 64)
     err, limit, ok = probes.compare(out, ref, "bf16" if name.endswith("bf16") else "op32")
     assert ok, (err, limit)
+
+
+@pytest.mark.parametrize("name", probe_kernels.OPS)
+def test_probe_op_passes_and_rows(gen, name):
+    """Each op against op_plain at passes 0, 1, U - 1, U and 3U + 1 (U the
+    kernel's unroll: the main loop and its tail), at row counts that do not
+    divide the resident warps (1, an odd 577, and 20001, over the row pairs
+    the grid holds at once, so warps take a second pair); two launches give
+    equal bits. On the script's input (>= 0.5) maxreduce and add_bf16 leave
+    every value as it is, so those two also run on
+    ``window_cost.op_moving_input``, where every pass moves the values,
+    bit for bit against op_plain (the same two roundings: y + fl(max *
+    1e-9); bf16(y + bf16(1e-3)), exact in fp32 before its one rounding)."""
+    from sam3_lora_tpu_torch.probes import window_cost
+
+    u = probe_kernels.op_layout(name, 1)["unroll"]
+    for rows in (1, 577, 20001):
+        x = (torch.randn(rows, 576, generator=gen, device="cuda").abs() + 0.5)
+        inputs = [(x.to(probe_kernels.op_dtype(name)), "bf16" if name.endswith("bf16") else "op32")]
+        if name in ("maxreduce_f32", "add_bf16"):
+            inputs.append((window_cost.op_moving_input(gen, name, rows), "exact"))
+        for x, rule in inputs:
+            for passes in (0, 1, u - 1, u, 3 * u + 1):
+                out = probe_kernels.op_rate(x, name, passes)
+                ref = probe_kernels.op_plain(x, name, passes)
+                err, limit, ok = probes.compare(out, ref, rule)
+                assert ok, (rows, rule, passes, err, limit)
+            assert torch.equal(out, probe_kernels.op_rate(x, name, passes)), rows
+    layout = probe_kernels.op_layout(name, 20001)
+    assert layout["grid"] * layout["warps"] * layout["rows_per_warp"] < 20001
+
+
+def test_probe_op_layout_fills_every_sm_once(gen):
+    """At the probe's 9216 rows every SM holds the same CTAs (the grid is
+    their cap times the SMs, at most one short) and the row slots cover the
+    rows in one round, within one slot a warp of the SM's share."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in probe_kernels.OPS:
+        lay = probe_kernels.op_layout(name, 9216)
+        slots = lay["ctas_per_sm"] * lay["warps"] * lay["rows_per_warp"]
+        assert lay["grid"] > (lay["ctas_per_sm"] - 1) * sms, lay
+        assert 9216 / sms <= slots < 9216 / sms + lay["rows_per_warp"] * lay["ctas_per_sm"], lay
+
+
+def test_probe_op_sass_matches_mix(gen):
+    """The SASS check: cuobjdump's SASS of each probe_op_kernel<OP>'s main
+    pass loop, over its unroll and rows a warp, issues no fewer instructions
+    than window_cost.OP_MIX on any unit, and takes no longer on any unit
+    than the mix on its binding unit (on the issue slot up to SLOT_SLACK
+    longer, the loop's control)."""
+    from sam3_lora_tpu_torch.ops import _cuda
+    from sam3_lora_tpu_torch.probes import window_cost
+
+    sass = window_cost.op_sass(_cuda.build())
+    bad = {name: window_cost.sass_check(name, sass[name]) for name in probe_kernels.OPS}
+    assert not any(bad.values()), (bad, sass)
 
 
 def test_probe_pair_backward_matches_plain(gen):
