@@ -59,15 +59,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    entry and no other, outputs within SMALL_TOL of the
                    default route's; a vit_use_rope=False model through K1',
                    W-qkv and W-g without RoPE.
- 10. int8_bwd    - one full-width training step with base_quant="int8_bwd".
- 11. small       - a small config whose path runs every attention kernel: its
+ 10. processor   - Sam3Processor at the full config (bf16; then the int8 tier
+                   with GEMM_LORA_FUSED, as slice-int8): one set_image of the
+                   1200x900 image, then PROMPTS[-1] one at a time, the last
+                   with a box prompt. set_image launches K1 and K2 (and in
+                   the int8 tier K5/K4 in the ViT's GEMMs), each prompt K3
+                   and the text encoder's K4 and no ViT kernel, counts equal
+                   to the design's; one prompt's raw outputs bit for bit
+                   equal to SAM3LoRAInference._forward's on the same image;
+                   the median times (of 3) of set_image, each prompt, and
+                   predict of the same prompts one at a time and together;
+                   one set_image and one prompt under torch.profiler.
+ 11. validate    - cli.validate.validate_images over 8 seeded in-memory
+                   samples (SyntheticSamples, a COCO image id each) in bf16:
+                   forward, threshold, mask NMS, top 100; the RLE dump
+                   (PredictionDumper) decoded back to the kept masks bit for
+                   bit; mAP, mAP_50, mAP_75 and cgF1 finite and in [0, 1];
+                   the NMS keep of one image's 200 candidates on the card
+                   (ops.nms's host loop, and the device loop it was
+                   measured against) bit for bit equal to the CPU's, with
+                   the times of mask_iou and of each loop; the time split by
+                   forward, NMS, dump and metrics, and images/s.
+ 12. int8_bwd    - one full-width training step with base_quant="int8_bwd".
+ 13. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
                    fp32 on the CPU; again with its ViT in the int8 tier; at
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
- 12. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+ 14. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
                    window_cost, dma_floor, packed) at bench.py's batch 8
                    through their rows(): every stage rung (K1's own kernel
                    at each stage), op rate, work-per-CTA sweep and the
@@ -109,6 +130,8 @@ import torch.nn.functional as F
 from sam3_lora_tpu_torch.config import (
     LoRAConfig, ModelConfig, TrainConfig, bench_lora_config, bench_model_config, tiny_model_config,
 )
+from sam3_lora_tpu_torch.cli.validate import dump_predictions, score_predictions, validate_images
+from sam3_lora_tpu_torch.eval import load_predictions
 from sam3_lora_tpu_torch.inference import SAM3LoRAInference
 from sam3_lora_tpu_torch.measure import (
     KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, paired_ms,
@@ -119,6 +142,9 @@ from sam3_lora_tpu_torch.models import Batch, build_sam3_image_model, init_model
 from sam3_lora_tpu_torch.models.layers import LoRALinear
 from sam3_lora_tpu_torch.models.lora import trainable_parameters
 from sam3_lora_tpu_torch.ops.attention import dot_product_attention
+from sam3_lora_tpu_torch.ops.masks import mask_iou
+from sam3_lora_tpu_torch.ops import nms as nms_ops
+from sam3_lora_tpu_torch.ops.rle import rle_decode
 from sam3_lora_tpu_torch.ops import _cuda, attention_kernel, gemm_int8, quant, window_qkv
 from sam3_lora_tpu_torch.ops import window_attention as wa
 from sam3_lora_tpu_torch.ops.long_attention import (
@@ -135,6 +161,7 @@ from sam3_lora_tpu_torch.ops.window_attention import (
 from sam3_lora_tpu_torch.ops.window_qkv import window_attention_qkv, window_attention_rope_qkv
 from sam3_lora_tpu_torch.ops import probe_kernels
 from sam3_lora_tpu_torch.probes import dma_floor, format_check, format_row, packed, window_cost
+from sam3_lora_tpu_torch.processor import Sam3Processor
 from sam3_lora_tpu_torch.train.data import DataLoader, Sample
 from sam3_lora_tpu_torch.train.losses import compute_losses
 from sam3_lora_tpu_torch.train.prefetch import batch_to_device
@@ -692,6 +719,19 @@ def model_config(int8: bool) -> ModelConfig:
     return ModelConfig(dtype="bfloat16", base_quant="int8" if int8 else "none")
 
 
+def live_adapters(model: torch.nn.Module, g: torch.Generator) -> int:
+    """Draw every adapter's ``lora_b`` from ``g`` (zero at init, when the
+    adapter branch adds nothing), so that the branch is live; returns how
+    many adapters there are."""
+    n = 0
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LoRALinear) and m.lora_b is not None:
+                m.lora_b.normal_(0.0, 0.02, generator=g)
+                n += 1
+    return n
+
+
 # K5's kernels by the name the profiler gives them: the first pass (row
 # quantization and xa) and the mainloop with the low-rank step
 K5_KERNELS = {"first pass": "lora_prep_kernel", "mainloop": "S8ScaledLoRA"}
@@ -725,12 +765,7 @@ def phase_slice(g: torch.Generator, int8: bool = False):
     gemm_int8.GEMM_LORA_FUSED = int8
     t0 = time.perf_counter()
     engine = SAM3LoRAInference(model_config(int8), LORA, seed=SEED, device="cuda")
-    n_adapters = 0
-    with torch.no_grad():
-        for m in engine.model.modules():
-            if isinstance(m, LoRALinear) and m.lora_b is not None:
-                m.lora_b.normal_(0.0, 0.02, generator=g)  # the adapter branch is live
-                n_adapters += 1
+    n_adapters = live_adapters(engine.model, g)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in engine.model.parameters())
     n_int8 = sum(p.dtype == torch.int8 for p in engine.model.parameters())
@@ -797,7 +832,8 @@ def phase_slice(g: torch.Generator, int8: bool = False):
 class SyntheticSamples:
     """Seeded random samples as ``COCOSegmentDataset.load`` gives them: a
     uint8 image at the model's input size, 1-6 boxes (at most
-    ``max_targets``) with box-shaped masks at the mask-loss resolution."""
+    ``max_targets``) with box-shaped masks at the mask-loss resolution, and
+    the sample's index as its COCO image id."""
 
     def __init__(self, cfg: ModelConfig, n: int, seed: int):
         self.cfg, self.n, self.seed = cfg, n, seed
@@ -820,7 +856,7 @@ class SyntheticSamples:
             masks[j, y0:y1, x0:x1] = True
         return Sample(image=rng.randint(0, 256, (3, r, r), dtype=np.uint8), text="crack",
                       boxes=boxes, valid=valid, masks=masks, mask_valid=valid.copy(),
-                      is_exhaustive=True)
+                      is_exhaustive=True, coco_image_id=i)
 
 
 def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch: int, steps: int,
@@ -837,10 +873,7 @@ def fit(tag: str, g: torch.Generator, cfg: ModelConfig, lora: LoRAConfig, batch:
         loader = DataLoader(SyntheticSamples(cfg, batch * steps, SEED), batch,
                             shuffle=False, num_workers=2)
         stats = trainer.setup(steps_per_epoch=len(loader))
-        with torch.no_grad():
-            for m in trainer.model.modules():
-                if isinstance(m, LoRALinear) and m.lora_b is not None:
-                    m.lora_b.normal_(0.0, 0.02, generator=g)  # the adapter branch is live
+        live_adapters(trainer.model, g)
         torch.cuda.synchronize()
         print(f"{tag}: built {stats['total_parameters']} params "
               f"({stats['trainable_parameters']} trainable) in {time.perf_counter() - t0:.2f} s",
@@ -1023,17 +1056,11 @@ def phase_routes(g: torch.Generator):
         torch.cuda.synchronize()
         return out, counts(), time.perf_counter() - t0
 
-    def live(engine):
-        with torch.no_grad():
-            for m in engine.model.modules():
-                if isinstance(m, LoRALinear) and m.lora_b is not None:
-                    m.lora_b.normal_(0.0, 0.02, generator=g)
-
     cfg = model_config(False)
     n_global = len(cfg.vit_global_blocks)
     n_win = cfg.vit_depth - n_global
     engine = SAM3LoRAInference(cfg, LORA, seed=SEED, device="cuda")
-    live(engine)
+    live_adapters(engine.model, g)
     base = None
     for tag, packed, fuse_rope, qkv_native, entry in ROUTES:
         set_route(packed, fuse_rope, qkv_native)
@@ -1055,7 +1082,7 @@ def phase_routes(g: torch.Generator):
     torch.cuda.empty_cache()
 
     engine = SAM3LoRAInference(cfg.replace(vit_use_rope=False), LORA, seed=SEED, device="cuda")
-    live(engine)
+    live_adapters(engine.model, g)
     base = None
     for tag, packed, fuse_rope, qkv_native, entry in ROUTES_NO_ROPE:
         set_route(packed, fuse_rope, qkv_native)
@@ -1100,6 +1127,219 @@ def phase_routes(g: torch.Generator):
     launches[entry] = got[entry]
     launches[entry + "_bwd"] = got[entry + "_bwd"]
     return launches
+
+
+# the processor's box prompt (normalized cxcywh), on the last of its prompts
+PROC_BOX = np.array([[0.5, 0.5, 0.4, 0.3]], np.float32)
+PROC_REPS = 3
+
+
+def fmt_s(times) -> str:
+    return "[" + ", ".join(f"{t:.4f}" for t in times) + "]"
+
+
+def set_image_launches(cfg: ModelConfig) -> dict:
+    """Launches of one ``Sam3Processor.set_image``: the ViT's attention (K1
+    in every windowed block, K2 in the global ones) and, in the int8 tier
+    with ``GEMM_LORA_FUSED``, K5 for every block's adapted qkv, fc1 and fc2
+    (LORA's ViT targets) and K4 for its proj."""
+    n_global = len(cfg.vit_global_blocks)
+    want = {"window_attention_rope_packed": cfg.vit_depth - n_global,
+            "long_attention_rope_packed": n_global}
+    if cfg.base_quant != "none":
+        want["int8_lora_gemm_wres"] = 3 * cfg.vit_depth
+        want["int8_gemm_wres"] = cfg.vit_depth
+    return want
+
+
+def prompt_launches(cfg: ModelConfig) -> dict:
+    """Launches of one ``set_text_prompt``: K3 in every fusion-encoder
+    layer and, in the int8 tier, K4 for the text encoder's out_proj, c_fc
+    and c_proj in every layer; no ViT kernel."""
+    want = {"long_attention_packed": cfg.enc_layers}
+    if cfg.base_quant != "none":
+        want["int8_gemm_wres"] = 3 * cfg.text_layers
+    return want
+
+
+def host_seconds(fn):
+    """(fn(), host seconds to a device sync)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_processor(g: torch.Generator, int8: bool = False):
+    """Sam3Processor at the full config, PROC_REPS times: one set_image,
+    then PROMPTS[-1] one prompt at a time (the last with PROC_BOX), launch
+    counts equal to the design's; the median times of set_image, each
+    prompt, and ``predict`` of the same prompts one at a time and together;
+    one profiled set_image and prompt; one prompt's raw outputs bit for bit
+    equal to ``_forward``'s on the same preprocessed image."""
+    tag = "processor-int8" if int8 else "processor"
+    gemm_int8.GEMM_LORA_FUSED = int8
+    proc = Sam3Processor(model_config(int8), LORA, seed=SEED, device="cuda")
+    cfg, engine = proc.cfg, proc.engine
+    live_adapters(proc.model, g)
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    prompts = PROMPTS[-1]
+    boxes = [None] * (len(prompts) - 1) + [PROC_BOX]
+    proc.set_image(image).set_text_prompt("warm-up", boxes=PROC_BOX)  # first calls: set-up
+    engine.predict(image, ["warm-up"])
+    torch.cuda.synchronize()
+
+    t_set, t_prompts = [], [[] for _ in prompts]
+    m = cfg.feat_size * 4
+    for _ in range(PROC_REPS):
+        reset_counts()
+        t_set.append(host_seconds(lambda: proc.set_image(image))[1])
+        check_launches(f"{tag} set_image", counts(), set_image_launches(cfg))
+        for j, (prompt, box) in enumerate(zip(prompts, boxes)):
+            reset_counts()
+            res, secs = host_seconds(lambda: proc.set_text_prompt(prompt, boxes=box))
+            check_launches(f"{tag} set_text_prompt({prompt!r})", counts(), prompt_launches(cfg))
+            t_prompts[j].append(secs)
+            n = res["num_detections"]
+            if (res["boxes"].shape != (n, 4) or res["masks_lowres"].shape != (n, m, m)
+                    or not np.isfinite(res["boxes"]).all() or not np.isfinite(res["scores"]).all()
+                    or not 0.0 <= res["presence"] <= 1.0):
+                raise AssertionError(f"{tag}: bad result for {prompt!r}: {n} detections, "
+                                     f"presence {res['presence']}")
+    t_single = [[host_seconds(lambda: engine.predict(image, [p]))[1] for _ in range(PROC_REPS)]
+                for p in prompts]
+    t_batch = [host_seconds(lambda: engine.predict(image, prompts))[1] for _ in range(PROC_REPS)]
+    med = statistics.median
+    set_s, prompt_s, single_s = med(t_set), [med(t) for t in t_prompts], [med(t) for t in t_single]
+    print(f"{tag}: host s, median of {PROC_REPS}: set_image {set_s:.4f} {fmt_s(t_set)}; "
+          f"set_text_prompt {[round(t, 4) for t in prompt_s]} for {list(prompts)} (box prompt on "
+          f"the last) {' '.join(fmt_s(t) for t in t_prompts)}; predict one prompt at a time "
+          f"{[round(t, 4) for t in single_s]} {' '.join(fmt_s(t) for t in t_single)}, all "
+          f"{len(prompts)} in one request {med(t_batch):.4f} {fmt_s(t_batch)}; set_image + "
+          f"{len(prompts)} prompts {set_s + sum(prompt_s):.4f} against {len(prompts)} requests "
+          f"{sum(single_s):.4f}", flush=True)
+    for name, fn in (("set_image", lambda: proc.set_image(image)),
+                     (f"set_text_prompt({prompts[0]!r})", lambda: proc.set_text_prompt(prompts[0]))):
+        prof = profile_step(fn)
+        print(f"{tag} profile (one {name}, torch.profiler): {prof['device_ms']:.3f} device ms in "
+              f"a {prof['window_ms']:.3f} ms window, busy share {prof['busy_share']:.4f}",
+              flush=True)
+
+    # one prompt, no box: the processor's raw outputs against _forward's on
+    # the same preprocessed image, bit for bit (the same kernels on the same
+    # operands)
+    img, _ = engine.preprocess(image)
+    ids = engine.tokenizer(prompts[:1], context_length=cfg.text_context_length)
+    ref = engine._forward(torch.from_numpy(img).cuda(),
+                          torch.from_numpy(np.asarray(ids, np.int64)).cuda())
+    got = proc.ground(prompts[0], proc.geo_prompt())
+    diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+    print(f"{tag}: max |processor - _forward| (scores, presence, boxes, masks) at one prompt "
+          f"{diffs}", flush=True)
+    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+        raise AssertionError(f"{tag}: processor outputs differ from _forward's by {diffs}")
+    del proc, engine
+    torch.cuda.empty_cache()
+    gemm_int8.GEMM_LORA_FUSED = False
+
+
+VALIDATE_IMAGES = 8
+NMS_IOU = 0.7
+NMS_REPS = 20
+
+
+def nms_device_loop(iou, scores, iou_threshold: float, valid=None):
+    """The design ``ops/nms.py`` was measured against: its greedy recurrence
+    kept on the card, as JAX's ``fori_loop`` keeps it, three launches a row
+    (an AND, a NOT, an in-place AND). The same keep mask as
+    ``generic_nms_mask``."""
+    order, sup, keep = nms_ops.greedy_order(iou, scores, iou_threshold, valid)
+    keep = keep.clone()
+    for i in range(len(keep)):
+        keep &= ~(sup[i] & keep[i])
+    out = torch.zeros_like(keep)
+    out[order] = keep
+    return out
+
+
+def check_nms(engine, sample) -> dict:
+    """One image's 200 candidates: the keep mask on the card (``nms_masks``,
+    and the device loop it was measured against) and mask_iou against the
+    CPU's, bit for bit; the median times of mask_iou and of each loop."""
+    cfg = engine.cfg
+    ids = engine.tokenizer([sample.text], context_length=cfg.text_context_length)
+    scores, _, _, masks = engine._forward(
+        torch.from_numpy(sample.image[None]).cuda(),
+        torch.from_numpy(np.asarray(ids, np.int64)).cuda())
+    s, m = scores[0], masks[0] > 0.5
+    iou = mask_iou(m, m)
+    if not torch.equal(iou.cpu(), mask_iou(m.cpu(), m.cpu())):
+        raise AssertionError("mask_iou on the card differs from the CPU's")
+    want = nms_ops.nms_masks(m.cpu(), s.cpu(), NMS_IOU)
+    for name, got in (("nms_masks", nms_ops.nms_masks(m, s, NMS_IOU)),
+                      ("the device loop", nms_device_loop(iou, s, NMS_IOU))):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"NMS ({name}) on the card differs from the CPU's: "
+                                 f"{int((got.cpu() != want).sum())} of {len(want)} rows")
+    # CUDA-event ms, host time included (the host loop blocks the host
+    # between the two events)
+    return {"n": len(s), "kept": int(want.sum()),
+            "mask_iou_ms": median_ms(lambda: mask_iou(m, m), NMS_REPS),
+            "host_loop_ms": median_ms(lambda: nms_ops.generic_nms_mask(iou, s, NMS_IOU), NMS_REPS),
+            "device_loop_ms": median_ms(lambda: nms_device_loop(iou, s, NMS_IOU), NMS_REPS)}
+
+
+def phase_validate(g: torch.Generator):
+    """cli.validate's per-image work, dump and metrics over VALIDATE_IMAGES
+    seeded samples at the full bf16 config; the NMS of one image on the
+    card against the CPU; the time split and images/s."""
+    cfg = model_config(False)
+    engine = SAM3LoRAInference(cfg, LORA, seed=SEED, device="cuda")
+    live_adapters(engine.model, g)
+    ds = SyntheticSamples(cfg, VALIDATE_IMAGES, SEED)
+    nms = check_nms(engine, ds.load(0))  # also the warm-up
+    print(f"validate nms: {nms['n']} candidates, {nms['kept']} kept at IoU {NMS_IOU}, the card's "
+          f"keep (ops.nms, the host loop; and the device loop) and mask_iou bit for bit the "
+          f"CPU's; median ms of {NMS_REPS}: mask_iou {nms['mask_iou_ms']:.4f}, host loop "
+          f"{nms['host_loop_ms']:.4f}, device loop {nms['device_loop_ms']:.4f}", flush=True)
+
+    reset_counts()
+    (gts, dts, secs), wall = host_seconds(lambda: validate_images(engine, ds))
+    n_global = len(cfg.vit_global_blocks)
+    check_launches("validate", counts(), {
+        k: v * VALIDATE_IMAGES for k, v in {
+            "window_attention_rope_packed": cfg.vit_depth - n_global,
+            "long_attention_rope_packed": n_global,
+            "long_attention_packed": cfg.enc_layers}.items()})
+    kept = [len(dts[i]) for i in range(VALIDATE_IMAGES)]
+    with tempfile.TemporaryDirectory() as out_dir:
+        path, t_dump = host_seconds(lambda: dump_predictions(dts, out_dir))
+        records = load_predictions(path)
+    # the dump decodes back to the kept masks, bit for bit
+    for i in range(VALIDATE_IMAGES):
+        want = sorted((d["score"], d["mask"].astype(np.uint8).tobytes()) for d in dts[i])
+        got = sorted((r["score"], rle_decode(r["segmentation"]).tobytes())
+                     for r in records if r["image_id"] == i)
+        if got != want:
+            raise AssertionError(f"validate: the dump of image {i} does not decode to its "
+                                 f"{len(want)} kept masks ({len(got)} records)")
+    results, t_metrics = host_seconds(lambda: score_predictions(gts, dts, VALIDATE_IMAGES, 0.3,
+                                                         NMS_IOU, False))
+    total = secs["forward"] + secs["nms"] + t_dump + t_metrics
+    print(f"validate: {VALIDATE_IMAGES} images, kept {kept} masks (top 100 each), the dump's "
+          f"{len(records)} RLE records decode to them bit for bit; seconds: forward "
+          f"{secs['forward']:.4f}, NMS and selection {secs['nms']:.4f}, encode/dump "
+          f"{t_dump:.4f}, metrics {t_metrics:.4f}; validate_images {wall:.4f} s in all; "
+          f"{VALIDATE_IMAGES / total:.4f} images/s over the four, "
+          f"{VALIDATE_IMAGES / (total - t_dump):.4f} without the dump; metrics "
+          f"{ {k: round(results[k], 6) for k in ('mAP', 'mAP_50', 'mAP_75', 'cgF1')} }",
+          flush=True)
+    bad = {k: results[k] for k in ("mAP", "mAP_50", "mAP_75", "cgF1")
+           if not (np.isfinite(results[k]) and 0.0 <= results[k] <= 1.0)}
+    if bad or not sum(kept):
+        raise AssertionError(f"validate: metrics {bad} out of [0, 1], or no mask kept ({kept})")
+    del engine
+    torch.cuda.empty_cache()
 
 
 def phase_int8_bwd(g: torch.Generator):
@@ -1322,6 +1562,9 @@ def main():
           f"warm-up, peak {train_peak8 / 2**30:.3f} vs {train_peak / 2**30:.3f} GiB", flush=True)
     bench, _, _ = phase_bench_train(g)
     routes = phase_routes(g)
+    phase_processor(g)
+    phase_processor(g, int8=True)
+    phase_validate(g)
     phase_int8_bwd(g)
     phase_small_reference()
     phase_small_reference("small-int8", int8=True)

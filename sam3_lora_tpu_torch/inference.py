@@ -61,6 +61,17 @@ def resize_masks_to(masks: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return up[:, 0] >= 0.5
 
 
+def head_outputs(out: Dict[str, Any]):
+    """The model's output dict -> scores (B, Q), presence (B,), boxes
+    (B, Q, 4) cxcywh in [0, 1] and mask probabilities (B, Q, m, m), all
+    fp32, from the last decoder layer."""
+    scores = torch.sigmoid(out["pred_logits"][-1][..., 0].float())
+    presence = torch.sigmoid(out["presence_logit_dec"][-1][..., 0].float())
+    boxes = out["pred_boxes"][-1].float()
+    masks = torch.sigmoid(out["pred_masks"].float())
+    return scores, presence, boxes, masks
+
+
 class SAM3LoRAInference:
     def __init__(
         self,
@@ -104,12 +115,7 @@ class SAM3LoRAInference:
             img_ids=torch.zeros((b,), dtype=torch.long, device=self.device),
             geo=GeoPrompt.empty(b, self.cfg.max_prompt_boxes, device=self.device),
         )
-        out = self.model(batch)
-        scores = torch.sigmoid(out["pred_logits"][-1][..., 0].float())
-        presence = torch.sigmoid(out["presence_logit_dec"][-1][..., 0].float())
-        boxes = out["pred_boxes"][-1].float()
-        masks = torch.sigmoid(out["pred_masks"].float())
-        return scores, presence, boxes, masks
+        return head_outputs(self.model(batch))
 
     # ------------------------------------------------------------------ #
     def preprocess(self, image: ImageLike) -> Tuple[np.ndarray, Tuple[int, int]]:

@@ -49,6 +49,9 @@ class GeometryEncoder(nn.Module):
     def __init__(self, spec: Spec):
         super().__init__()
         cfg = spec.model
+        if cfg.geo_mask_prompts:
+            raise NotImplementedError("the port's geometry encoder takes no mask prompts "
+                                      "(geo_mask_prompts=True)")
         d = cfg.d_model
         self.spec = spec
         self.img_pre_norm = LayerNorm(d, spec)

@@ -1,11 +1,15 @@
-"""COCO segmentation decoding (host side, numpy/PIL): the port's own copy of
-the part of ``sam3_lora_tpu/ops/rle.py`` that ``train/data.py`` needs.
+"""COCO run-length encoding (host side, numpy/PIL): the port's own copy of
+``sam3_lora_tpu/ops/rle.py``'s numpy codec.
 
-``segmentation_to_mask`` takes a COCO ``segmentation`` field, polygons or
-RLE (compressed string or uncompressed counts), to an (H, W) uint8 mask.
-Polygons rasterize with PIL's polygon fill; RLE decodes with the
-pycocotools format (column-major runs, the first run counts zeros, the
-compressed counts delta-coded in 6-bit chars offset by 48).
+* ``rle_encode`` / ``rle_decode``: COCO compressed RLE (column-major runs,
+  the first run counting zeros, the counts delta-coded in 6-bit chars
+  offset by 48), byte for byte the JAX package's ``rle_encode_numpy`` and
+  pycocotools' rleToString / rleFrString;
+* ``segmentation_to_mask``: a COCO ``segmentation`` field, polygons (PIL's
+  polygon fill) or RLE (compressed string or uncompressed counts), to an
+  (H, W) uint8 mask;
+* ``rle_area``; ``rle_counts_device``, the run boundaries of a mask on its
+  device (the string stays on the host).
 """
 
 from __future__ import annotations
@@ -13,6 +17,52 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
+import torch
+
+
+def _mask_to_counts(mask: np.ndarray) -> np.ndarray:
+    """Column-major run lengths, first run counts zeros. mask: (H, W) {0,1}."""
+    flat = np.asarray(mask, dtype=np.uint8).flatten(order="F")
+    if flat.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    change = np.nonzero(np.diff(flat))[0] + 1
+    idx = np.concatenate([[0], change, [flat.size]])
+    counts = np.diff(idx).astype(np.int64)
+    if flat[0] == 1:
+        counts = np.concatenate([[0], counts])
+    return counts
+
+
+def _counts_to_string(counts: np.ndarray) -> str:
+    """pycocotools rleToString: delta coding + 6-bit varint chars (+48)."""
+    out = []
+    cnts = counts.astype(np.int64)
+    for i in range(len(cnts)):
+        x = int(cnts[i])
+        if i > 2:
+            x -= int(cnts[i - 2])
+        more = True
+        while more:
+            c = x & 0x1F
+            x >>= 5
+            more = not ((x == 0 and not (c & 0x10)) or (x == -1 and (c & 0x10)))
+            if more:
+                c |= 0x20
+            out.append(chr(c + 48))
+    return "".join(out)
+
+
+def rle_encode(mask: np.ndarray) -> Dict:
+    """Binary (H, W) mask -> COCO compressed RLE dict."""
+    h, w = mask.shape
+    return {"size": [int(h), int(w)], "counts": _counts_to_string(_mask_to_counts(mask))}
+
+
+def rle_area(rle: Dict) -> int:
+    counts = rle["counts"]
+    if isinstance(counts, (str, bytes)):
+        counts = _string_to_counts(counts)
+    return int(np.sum(np.asarray(counts, dtype=np.int64)[1::2]))
 
 
 def _string_to_counts(s: Union[str, bytes]) -> np.ndarray:
@@ -81,3 +131,12 @@ def segmentation_to_mask(seg, h: int, w: int) -> np.ndarray:
     if isinstance(seg, list):
         return polygons_to_mask(seg, h, w)
     raise ValueError(f"Unknown segmentation format: {type(seg)}")
+
+
+def rle_counts_device(mask: torch.Tensor):
+    """Run boundaries of an (H, W) mask on its device: the column-major
+    uint8 values and where a run starts (the first element always)."""
+    flat = mask.to(torch.uint8).T.reshape(-1)  # column-major
+    change = torch.cat([torch.ones((1,), dtype=torch.bool, device=flat.device),
+                        flat[1:] != flat[:-1]])
+    return flat, change

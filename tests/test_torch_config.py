@@ -57,26 +57,29 @@ def test_load_yaml_config_equals_jax(tmp_path):
     assert model_config_from_yaml({"dtype": "float32"}) == tc.ModelConfig(dtype="float32")
 
 
-@pytest.mark.parametrize("entry", ["trainer", "inference"])
+@pytest.mark.parametrize("entry", ["trainer", "inference", "processor"])
 def test_entry_points_default_to_the_card(entry):
-    """With no device, ``Trainer`` and ``SAM3LoRAInference`` build on CUDA:
-    on a host without a card that raises (nothing falls back to the CPU)."""
+    """With no device, ``Trainer``, ``SAM3LoRAInference`` and
+    ``Sam3Processor`` build on CUDA: on a host without a card that raises
+    (nothing falls back to the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default is then simply usable")
     if entry == "trainer":
         from sam3_lora_tpu_torch.train.trainer import Trainer as cls
-    else:
+    elif entry == "inference":
         from sam3_lora_tpu_torch.inference import SAM3LoRAInference as cls
+    else:
+        from sam3_lora_tpu_torch.processor import Sam3Processor as cls
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
         cls(tc.tiny_model_config())
 
 
-@pytest.mark.parametrize("cli", ["train", "infer"])
+@pytest.mark.parametrize("cli", ["train", "infer", "validate", "compare"])
 def test_clis_default_to_the_card(cli, tmp_path):
-    """``--device`` defaults to cuda in both CLIs (parsed, not run)."""
+    """``--device`` defaults to cuda in every CLI (parsed, not run)."""
     import argparse
 
-    from sam3_lora_tpu_torch.cli import infer, train
+    from sam3_lora_tpu_torch.cli import compare, infer, train, validate
 
     seen = {}
     orig = argparse.ArgumentParser.parse_args
@@ -86,12 +89,15 @@ def test_clis_default_to_the_card(cli, tmp_path):
         seen["device"] = ns.device
         raise SystemExit(0)
 
-    argv = ["--config", "x.yaml"] + ([] if cli == "train" else ["--image", "x.png"])
+    argv = ["--config", "x.yaml"] + {
+        "train": [], "infer": ["--image", "x.png"], "validate": ["--val_data_dir", "v"],
+        "compare": ["--weights", "w.npz", "--val_data_dir", "v"]}[cli]
+    mod = {"train": train, "infer": infer, "validate": validate, "compare": compare}[cli]
     mp = pytest.MonkeyPatch()
     mp.setattr(argparse.ArgumentParser, "parse_args", spy)
     try:
         with pytest.raises(SystemExit):
-            (train if cli == "train" else infer).main(argv)
+            mod.main(argv)
     finally:
         mp.undo()
     assert seen["device"] == "cuda"

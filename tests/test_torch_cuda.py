@@ -22,7 +22,9 @@ every stage rung and op rate against its plain version (the op rates also
 at passes around the kernel's unroll and ragged row counts, with their
 launch layout and their SASS against ``window_cost.OP_MIX``), the full rung
 bit for bit equal to the production forward, the packed layout's
-backward."""
+backward. The serving path's mask IoU and NMS (``ops/masks.py``,
+``ops/nms.py``, and chip_smoke's device loop) on the card, bit for bit the
+CPU's."""
 
 import numpy as np
 import pytest
@@ -738,3 +740,48 @@ def test_probe_wrappers_count_and_check(gen):
         probe_kernels.stage(q, k, v, "qk_exp_pv", 0.125, pair=True)
     with pytest.raises(ValueError, match="head_dim"):
         probe_kernels.stage(*(t[..., :32] for t in (q, k, v)), "full", 0.125)
+
+
+def _nms_candidates(n: int = 200, side: int = 288):
+    """``n`` seeded box masks at ``side``² and scores in steps of 1/16, so
+    that many tie: the serving path's candidate count and mask size."""
+    rng = np.random.RandomState(0)
+    masks = np.zeros((n, side, side), bool)
+    for i in range(n):
+        x0, y0 = rng.randint(0, side - 40, 2)
+        w, h = rng.randint(20, 120, 2)
+        masks[i, y0:y0 + h, x0:x0 + w] = True
+    scores = rng.randint(0, 16, n).astype(np.float32) / 16
+    return torch.from_numpy(masks), torch.from_numpy(scores)
+
+
+def test_mask_iou_on_the_card_equals_the_cpu(gen):
+    """mask_iou at 200 x 288² on the card, bit for bit the CPU's: the 0/1
+    product sums exactly, and the division rounds once on both."""
+    from sam3_lora_tpu_torch.ops.masks import mask_iou, masks_to_boxes
+
+    masks, _ = _nms_candidates()
+    want = mask_iou(masks, masks)
+    assert torch.equal(mask_iou(masks.cuda(), masks.cuda()).cpu(), want)
+    assert torch.equal(masks_to_boxes(masks.cuda()).cpu(), masks_to_boxes(masks))
+
+
+@pytest.mark.parametrize("impl", ["nms_masks", "device_loop"])
+def test_nms_on_the_card_equals_the_cpu(gen, impl):
+    """The NMS keep mask at N = 200 with tied scores and a valid mask on the
+    card, bit for bit the CPU's: ``nms_masks`` (IoU on the card, the loop on
+    the host) and chip_smoke's device loop, the design it was measured
+    against."""
+    from sam3_lora_tpu_torch.ops.masks import mask_iou
+    from sam3_lora_tpu_torch.ops.nms import nms_masks
+
+    masks, scores = _nms_candidates()
+    valid = torch.from_numpy(np.random.RandomState(1).rand(200) > 0.1)
+    m, s, iou = masks.cuda(), scores.cuda(), mask_iou(masks.cuda(), masks.cuda())
+    for thr in (0.3, 0.7):
+        for v in (None, valid):
+            want = nms_masks(masks, scores, thr, valid=v)
+            vc = None if v is None else v.cuda()
+            got = (nms_masks(m, s, thr, valid=vc) if impl == "nms_masks"
+                   else chip_smoke.nms_device_loop(iou, s, thr, valid=vc))
+            assert got.is_cuda and torch.equal(got.cpu(), want), (thr, v is None)

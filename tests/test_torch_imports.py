@@ -1,7 +1,8 @@
 """The PyTorch port imports nothing of JAX or Flax, and nothing of the JAX
 package (``sam3_lora_tpu``), serving and training alike: the machine with
 the GPU has no use for them, and the port keeps its own copies of what it
-needs (config, tokenizer, datapoint transforms, the RLE codec)."""
+needs (config, tokenizer, datapoint transforms, the RLE codec, the image
+evaluators)."""
 
 import os
 import subprocess
@@ -23,6 +24,11 @@ CODE = (
     "import sam3_lora_tpu_torch.ops.probe_kernels, sam3_lora_tpu_torch.probes.window_cost\n"
     "import sam3_lora_tpu_torch.measure\n"
     "import sam3_lora_tpu_torch.probes.dma_floor, sam3_lora_tpu_torch.probes.packed\n"
+    "import sam3_lora_tpu_torch.processor, sam3_lora_tpu_torch.ops.masks, sam3_lora_tpu_torch.ops.nms\n"
+    "import sam3_lora_tpu_torch.eval, sam3_lora_tpu_torch.eval.coco_map, sam3_lora_tpu_torch.eval.cgf1\n"
+    "import sam3_lora_tpu_torch.eval.tide, sam3_lora_tpu_torch.eval.writer\n"
+    "import sam3_lora_tpu_torch.cli.validate, sam3_lora_tpu_torch.cli.compare\n"
+    "r.rle_decode(r.rle_encode(__import__('numpy').eye(3, dtype=bool)))\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"
