@@ -73,22 +73,39 @@ Phases (each prints its lines; any failure raises and exits non-zero):
  11. validate    - cli.validate.validate_images over 8 seeded in-memory
                    samples (SyntheticSamples, a COCO image id each) in bf16:
                    forward, threshold, mask NMS, top 100; the RLE dump
-                   (PredictionDumper) decoded back to the kept masks bit for
-                   bit; mAP, mAP_50, mAP_75 and cgF1 finite and in [0, 1];
-                   the NMS keep of one image's 200 candidates on the card
-                   (ops.nms's host loop, and the device loop it was
+                   (PredictionDumper, through the native RLE codec) decoded
+                   back to the kept masks bit for bit, and its strings byte
+                   for byte those of the same dump through the numpy
+                   encoder; mAP, mAP_50, mAP_75 and cgF1 finite and in
+                   [0, 1]; the NMS keep of one image's 200 candidates on the
+                   card (ops.nms's host loop, and the device loop it was
                    measured against) bit for bit equal to the CPU's, with
                    the times of mask_iou and of each loop; the time split by
-                   forward, NMS, dump and metrics, and images/s.
- 12. int8_bwd    - one full-width training step with base_quant="int8_bwd".
- 13. small       - a small config whose path runs every attention kernel: its
+                   forward, NMS, dump (both encoders) and metrics, and
+                   images/s.
+ 12. interactive - SAM3InteractiveImagePredictor on a bf16 Sam3Processor:
+                   set_image of the 1200x900 image (K1 and K2 only), a click
+                   with three masks and a box with a negative click with
+                   one (no kernel), predict_batch over two images (K1 and K2
+                   per image); the card's SAM heads within SMALL_TOL of their
+                   fp32 CPU run on the cached features; interactive_ground
+                   for 2 refinement steps, each stage K3 only, finite; the
+                   median times of set_image, a click and a stage, and one
+                   profiled click.
+ 13. model options - a geo_mask_prompts model grounds a 1200x900 mask prompt
+                   (K3 only, finite, 72^2 more prompt tokens); the decoder's
+                   dense boxRPB oracle within SMALL_TOL of the separable
+                   route on one set of full-width weights and inputs; a
+                   box_rpb="none" decoder's outputs finite.
+ 14. int8_bwd    - one full-width training step with base_quant="int8_bwd".
+ 15. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
                    fp32 on the CPU; again with its ViT in the int8 tier; at
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
- 14. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+ 16. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
                    window_cost, dma_floor, packed) at bench.py's batch 8
                    through their rows(): every stage rung (K1's own kernel
                    at each stage), op rate, work-per-CTA sweep and the
@@ -144,7 +161,8 @@ from sam3_lora_tpu_torch.models.lora import trainable_parameters
 from sam3_lora_tpu_torch.ops.attention import dot_product_attention
 from sam3_lora_tpu_torch.ops.masks import mask_iou
 from sam3_lora_tpu_torch.ops import nms as nms_ops
-from sam3_lora_tpu_torch.ops.rle import rle_decode
+from sam3_lora_tpu_torch.ops.rle import rle_decode, rle_encode_numpy
+from sam3_lora_tpu_torch.eval import writer as eval_writer
 from sam3_lora_tpu_torch.ops import _cuda, attention_kernel, gemm_int8, quant, window_qkv
 from sam3_lora_tpu_torch.ops import window_attention as wa
 from sam3_lora_tpu_torch.ops.long_attention import (
@@ -161,6 +179,10 @@ from sam3_lora_tpu_torch.ops.window_attention import (
 from sam3_lora_tpu_torch.ops.window_qkv import window_attention_qkv, window_attention_rope_qkv
 from sam3_lora_tpu_torch.ops import probe_kernels
 from sam3_lora_tpu_torch.probes import dma_floor, format_check, format_row, packed, window_cost
+from sam3_lora_tpu_torch.interactive import interactive_ground
+from sam3_lora_tpu_torch.models.decoder import TransformerDecoder
+from sam3_lora_tpu_torch.models.layers import Spec
+from sam3_lora_tpu_torch.predictor import SAM3InteractiveImagePredictor, tracker_core
 from sam3_lora_tpu_torch.processor import Sam3Processor
 from sam3_lora_tpu_torch.train.data import DataLoader, Sample
 from sam3_lora_tpu_torch.train.losses import compute_losses
@@ -1315,6 +1337,18 @@ def phase_validate(g: torch.Generator):
     with tempfile.TemporaryDirectory() as out_dir:
         path, t_dump = host_seconds(lambda: dump_predictions(dts, out_dir))
         records = load_predictions(path)
+        # the same dump through the numpy encoder: its strings byte for byte
+        # the codec's
+        codec_encode = eval_writer.rle_encode
+        eval_writer.rle_encode = rle_encode_numpy
+        try:
+            path_np, t_dump_np = host_seconds(lambda: dump_predictions(dts, out_dir + "/np"))
+        finally:
+            eval_writer.rle_encode = codec_encode
+        strings = [r["segmentation"]["counts"] for r in records]
+        if strings != [r["segmentation"]["counts"] for r in load_predictions(path_np)]:
+            raise AssertionError("validate: the native codec's RLE strings differ from the numpy "
+                                 "encoder's")
     # the dump decodes back to the kept masks, bit for bit
     for i in range(VALIDATE_IMAGES):
         want = sorted((d["score"], d["mask"].astype(np.uint8).tobytes()) for d in dts[i])
@@ -1327,10 +1361,12 @@ def phase_validate(g: torch.Generator):
                                                          NMS_IOU, False))
     total = secs["forward"] + secs["nms"] + t_dump + t_metrics
     print(f"validate: {VALIDATE_IMAGES} images, kept {kept} masks (top 100 each), the dump's "
-          f"{len(records)} RLE records decode to them bit for bit; seconds: forward "
-          f"{secs['forward']:.4f}, NMS and selection {secs['nms']:.4f}, encode/dump "
-          f"{t_dump:.4f}, metrics {t_metrics:.4f}; validate_images {wall:.4f} s in all; "
-          f"{VALIDATE_IMAGES / total:.4f} images/s over the four, "
+          f"{len(records)} RLE records decode to them bit for bit, its strings byte for byte the "
+          f"numpy encoder's; seconds: forward {secs['forward']:.4f}, NMS and selection "
+          f"{secs['nms']:.4f}, encode/dump {t_dump:.4f} (native codec; the numpy encoder's dump "
+          f"{t_dump_np:.4f}), metrics {t_metrics:.4f}; validate_images {wall:.4f} s in all; "
+          f"{VALIDATE_IMAGES / total:.4f} images/s over the four "
+          f"({VALIDATE_IMAGES / (total - t_dump + t_dump_np):.4f} with the numpy dump), "
           f"{VALIDATE_IMAGES / (total - t_dump):.4f} without the dump; metrics "
           f"{ {k: round(results[k], 6) for k in ('mAP', 'mAP_50', 'mAP_75', 'cgF1')} }",
           flush=True)
@@ -1339,6 +1375,194 @@ def phase_validate(g: torch.Generator):
     if bad or not sum(kept):
         raise AssertionError(f"validate: metrics {bad} out of [0, 1], or no mask kept ({kept})")
     del engine
+    torch.cuda.empty_cache()
+
+
+CLICK = dict(point_coords=[[600.0, 450.0]], point_labels=[1], multimask_output=True)
+BOX_CLICK = dict(point_coords=[[300.0, 200.0]], point_labels=[0], box=[100.0, 100.0, 800.0, 600.0],
+                 multimask_output=False)
+GT_BOXES = np.array([[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.25, 0.2]], np.float32)  # cxcywh
+
+
+def heads_against_cpu(pred: SAM3InteractiveImagePredictor, prompts) -> float:
+    """The predictor's SAM heads on its device against the same heads in
+    fp32 on the CPU, on the cached features moved to the host: every
+    prompt's multimask logits and IoU. Returns the worst max |device - cpu| /
+    max |cpu|."""
+    cpu = tracker_core(pred.cfg.replace(dtype="float32"), torch.device("cpu"))
+    cpu.load_state_dict({k: v.cpu() for k, v in pred.core.state_dict().items()})
+    cpu.eval()
+    feats = (pred._features, {k: v.float().cpu() for k, v in pred._features.items()})
+    worst = 0.0
+    for kw in prompts:
+        coords, labels = pred._prep_prompts(kw.get("point_coords"), kw.get("point_labels"),
+                                            kw.get("box"))
+        outs = []
+        for core, f in zip((pred.core, cpu), feats):
+            dev = f["vis"].device
+            with torch.inference_mode():
+                masks, iou, _, _ = core.predict_masks(
+                    core.no_memory_features(f["vis"]), [f["hi0"], f["hi1"]],
+                    coords.to(dev), labels.to(dev), multimask_output=True)
+            outs.append((masks.float().cpu(), iou.float().cpu()))
+        for got, want in zip(*outs):
+            worst = max(worst, (got - want).abs().max().item() / want.abs().max().item())
+    return worst
+
+
+def phase_interactive(g: torch.Generator):
+    """SAM3InteractiveImagePredictor on a Sam3Processor at the full bf16
+    config: set_image of the 1200x900 image (K1 and K2 only), a click with
+    multimask output, a box and a negative click with single output,
+    predict_batch over two images (no K1/K2 in any predict); the heads held
+    against their fp32 CPU run; interactive_ground for 2 refinement steps
+    (each stage K3 only); the median times (of PROC_REPS, after a warm-up)
+    of set_image, a click and a stage; one profiled click."""
+    tag = "interactive"
+    proc = Sam3Processor(model_config(False), LORA, seed=SEED, device="cuda")
+    cfg = proc.cfg
+    live_adapters(proc.model, g)
+    pred = SAM3InteractiveImagePredictor(proc, seed=SEED)
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    image2 = np.random.RandomState(SEED + 1).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    pred.set_image(image).predict(**CLICK)  # first calls: set-up
+    pred.predict(**BOX_CLICK)
+    proc.set_text_prompt("warm-up", boxes=PROC_BOX)
+    torch.cuda.synchronize()
+
+    t_set, t_click = [], []
+    low = cfg.feat_size * 4
+    for _ in range(PROC_REPS):
+        reset_counts()
+        t_set.append(host_seconds(lambda: pred.set_image(image))[1])
+        check_launches(f"{tag} set_image", counts(), set_image_launches(cfg))
+        for kw, n in ((CLICK, 3), (BOX_CLICK, 1)):
+            reset_counts()
+            (masks, iou, lowres), secs = host_seconds(lambda: pred.predict(**kw))
+            check_launches(f"{tag} predict", counts(), {})
+            if kw is CLICK:
+                t_click.append(secs)
+            if (masks.shape != (n, 900, 1200) or masks.dtype != bool or iou.shape != (n,)
+                    or lowres.shape != (n, low, low) or not np.isfinite(lowres).all()
+                    or not np.isfinite(iou).all()):
+                raise AssertionError(f"{tag}: bad predict output {masks.shape} {masks.dtype} "
+                                     f"{iou.shape} {lowres.shape}")
+    worst = heads_against_cpu(pred, (CLICK, BOX_CLICK))
+    print(f"{tag}: the card's heads (bf16) against their fp32 CPU run on the cached features: "
+          f"max |card - cpu| / max |cpu| {worst:.5f} (limit {SMALL_TOL})", flush=True)
+    if worst > SMALL_TOL:
+        raise AssertionError(f"{tag}: heads differ from the CPU's by {worst}")
+    reset_counts()
+    outs = pred.predict_batch([image, image2], [[[600.0, 450.0]], [[200.0, 300.0]]], [[1], [1]])
+    check_launches(f"{tag} predict_batch", counts(),
+                   {k: 2 * v for k, v in set_image_launches(cfg).items()})
+    if [o[0].shape for o in outs] != [(3, 900, 1200)] * 2:
+        raise AssertionError(f"{tag}: predict_batch shapes {[o[0].shape for o in outs]}")
+    prof = profile_step(lambda: pred.predict(**CLICK))
+
+    # interactive_ground: every stage one set_text_prompt, counted and timed
+    stages_seen = []
+    plain_prompt = proc.set_text_prompt
+
+    def counted(*a, **k):
+        reset_counts()
+        out, secs = host_seconds(lambda: plain_prompt(*a, **k))
+        stages_seen.append((counts(), secs))
+        return out
+
+    proc.set_text_prompt = counted
+    try:
+        stages = interactive_ground(proc, image, "crack", GT_BOXES, num_interactive_steps=2,
+                                    threshold=0.0)
+    finally:
+        del proc.set_text_prompt
+    for i, (st, (launches, _)) in enumerate(zip(stages, stages_seen)):
+        check_launches(f"{tag} stage {i}", launches, prompt_launches(cfg))
+        if not (np.isfinite(st["scores"]).all() and np.isfinite(st["boxes"]).all()):
+            raise AssertionError(f"{tag}: stage {i} outputs are not finite")
+    if len(stages) < 2:  # the sampler stops early only when it finds no error
+        raise AssertionError(f"{tag}: {len(stages)} stage, no refinement step ran")
+    t_stage = [secs for _, secs in stages_seen]
+    med = statistics.median
+    print(f"{tag}: host s, median of {PROC_REPS}: set_image {med(t_set):.4f} {fmt_s(t_set)}, "
+          f"click (multimask) {med(t_click):.4f} {fmt_s(t_click)}, interactive_ground stage "
+          f"{med(t_stage):.4f} {fmt_s(t_stage)} with {[len(st['prompt_boxes']) for st in stages]} "
+          f"box prompts; profile (one click, torch.profiler): {prof['device_ms']:.3f} device ms "
+          f"in a {prof['window_ms']:.3f} ms window, busy share {prof['busy_share']:.4f}",
+          flush=True)
+    del pred, proc
+    torch.cuda.empty_cache()
+
+
+def decoder_options(cfg: ModelConfig, device, g: torch.Generator):
+    """The decoder's dense boxRPB oracle (``dec_separable_bias=False``)
+    against its separable route on one set of weights and inputs, and a
+    ``box_rpb="none"`` decoder on the same inputs. Returns (max |dense -
+    separable| / max |separable| over the layers' queries, boxes and
+    presence logits; whether the no-RPB outputs are finite)."""
+    decs = {}
+    for name, over in (("separable", {}), ("dense", dict(dec_separable_bias=False)),
+                       ("none", dict(box_rpb="none"))):
+        decs[name] = TransformerDecoder(Spec(model=cfg.replace(**over), device=device)).eval()
+        init_model(decs[name], g)
+    decs["dense"].load_state_dict(decs["separable"].state_dict())
+    hw, d = cfg.feat_size, cfg.d_model
+    mem, pos = (torch.randn(1, hw * hw, d, generator=g, device=device) for _ in range(2))
+    text = torch.randn(1, cfg.text_context_length, d, generator=g, device=device)
+    tmask = torch.arange(cfg.text_context_length, device=device)[None] >= 5
+    with torch.inference_mode():
+        outs = {k: m(mem, pos, text, tmask, (hw, hw)) for k, m in decs.items()}
+    worst = 0.0
+    for field in ("hs", "pred_coords", "presence_logits"):
+        a, b = getattr(outs["dense"], field).float(), getattr(outs["separable"], field).float()
+        worst = max(worst, (a - b).abs().max().item() / b.abs().max().item())
+    finite = all(torch.isfinite(getattr(outs["none"], f)).all().item()
+                 for f in ("hs", "pred_coords", "presence_logits"))
+    return worst, finite
+
+
+def phase_model_options(g: torch.Generator):
+    """The model options at the full bf16 config: a mask prompt (1200x900)
+    through a geo_mask_prompts model (K3 only, finite, 72^2 more prompt
+    tokens); the dense boxRPB oracle within SMALL_TOL of the separable
+    route; a box_rpb="none" decoder finite."""
+    tag = "model options"
+    cfg = ModelConfig(dtype="bfloat16", geo_mask_prompts=True)
+    proc = Sam3Processor(cfg, LORA, seed=SEED, device="cuda")
+    live_adapters(proc.model, g)
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    mask = np.zeros((900, 1200), np.float32)
+    mask[200:700, 300:900] = 1.0
+    proc.set_image(image).set_text_prompt("warm-up", mask_prompt=mask)
+    reset_counts()
+    res, secs = host_seconds(lambda: proc.set_text_prompt("crack", mask_prompt=mask))
+    check_launches(f"{tag} mask prompt", counts(), prompt_launches(cfg))
+    if not (np.isfinite(res["scores"]).all() and np.isfinite(res["boxes"]).all()
+            and 0.0 <= res["presence"] <= 1.0):
+        raise AssertionError(f"{tag}: the mask prompt's outputs are not finite")
+    geo = proc.geo_prompt()
+    feats = proc._state["feats"][-1]
+    tokens = feats.flatten(2).transpose(1, 2)
+    lengths = []
+    for m in (None, mask):
+        if m is not None:
+            geo.mask_embeddings = torch.from_numpy(m)[None, None].cuda()
+            geo.mask_mask = torch.zeros((1, 1), dtype=torch.bool, device="cuda")
+            geo.mask_labels = torch.ones((1, 1), dtype=torch.long, device="cuda")
+        with torch.inference_mode():
+            seq, _ = proc.model.geometry_encoder(geo, tokens, tokens, feats.shape[-2:])
+        lengths.append(seq.shape[1])
+    if lengths[1] - lengths[0] != cfg.feat_size ** 2:
+        raise AssertionError(f"{tag}: the mask prompt adds {lengths[1] - lengths[0]} prompt tokens")
+    del proc
+    torch.cuda.empty_cache()
+    worst, finite = decoder_options(model_config(False), "cuda", g)
+    print(f"{tag}: a 1200x900 mask prompt in {secs:.4f} s, finite, K3 x{cfg.enc_layers}, geometry "
+          f"tokens {lengths[0]} -> {lengths[1]}; the dense boxRPB oracle against the separable "
+          f"route max |dense - separable| / max |separable| {worst:.5f} (limit {SMALL_TOL}); "
+          f"box_rpb='none' outputs finite {finite}", flush=True)
+    if worst > SMALL_TOL or not finite:
+        raise AssertionError(f"{tag}: dense oracle off by {worst}, or box_rpb='none' not finite")
     torch.cuda.empty_cache()
 
 
@@ -1565,6 +1789,8 @@ def main():
     phase_processor(g)
     phase_processor(g, int8=True)
     phase_validate(g)
+    phase_interactive(g)
+    phase_model_options(g)
     phase_int8_bwd(g)
     phase_small_reference()
     phase_small_reference("small-int8", int8=True)

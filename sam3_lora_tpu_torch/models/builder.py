@@ -52,8 +52,9 @@ def dummy_batch(
     device=None,
 ) -> Batch:
     """A zero batch of the config's shapes (JAX ``builder.dummy_batch``): one
-    start/end-token prompt per row and, with targets, one centred box with
-    an empty mask per row."""
+    start/end-token prompt per row, a padded mask prompt when the config
+    takes them and, with targets, one centred box with an empty mask per
+    row."""
     n_img = num_images or batch_size
     r, t, m = cfg.img_size, cfg.max_targets, cfg.mask_loss_resolution
     targets = None
@@ -70,10 +71,15 @@ def dummy_batch(
     token_ids = torch.zeros((batch_size, cfg.text_context_length), dtype=torch.long,
                             device=device)
     token_ids[:, 0], token_ids[:, 1] = 49406, 49407
+    geo = GeoPrompt.empty(batch_size, cfg.max_prompt_boxes, device=device)
+    if cfg.geo_mask_prompts:
+        geo.mask_embeddings = torch.zeros((batch_size, 1, r, r), device=device)
+        geo.mask_mask = torch.ones((batch_size, 1), dtype=torch.bool, device=device)
+        geo.mask_labels = torch.ones((batch_size, 1), dtype=torch.long, device=device)
     return Batch(
         images=torch.zeros((n_img, 3, r, r), device=device),
         token_ids=token_ids,
         img_ids=torch.arange(batch_size, device=device) % n_img,
-        geo=GeoPrompt.empty(batch_size, cfg.max_prompt_boxes, device=device),
+        geo=geo,
         targets=targets,
     )

@@ -1,8 +1,13 @@
 """DETR decoder (port of ``sam3_lora_tpu/models/decoder.py``): learned
 queries and reference boxes, a presence token, text cross-attention, image
-cross-attention with the separable log-scale boxRPB bias, iterative box
-refinement, and in training DAC query doubling (a second, one-to-many copy
-of the queries that skips the self-attention) and the layer dropouts.
+cross-attention with the boxRPB bias, iterative box refinement, and in
+training DAC query doubling (a second, one-to-many copy of the queries that
+skips the self-attention) and the layer dropouts.
+
+The boxRPB bias goes to the image cross-attention as separable halves
+(``dec_separable_bias``, the default: ``ops/rpb_attention.py`` builds it
+chunk by chunk), or as the dense (B, heads, L, HW) tensor, the JAX package's
+oracle, through the plain attention; ``box_rpb="none"`` adds no bias.
 
 With ``dec_remat`` each layer runs under ``checkpoint`` in training (the JAX
 ``nn.remat`` per decoder layer).
@@ -68,6 +73,15 @@ class BoxRPB(nn.Module):
         return self.boxRPB_embed_y(dy), self.boxRPB_embed_x(dx)
 
 
+def rpb_dense_bias(dy: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """The separable halves dy (B, Q, H, heads), dx (B, Q, W, heads) ->
+    the dense bias (B, heads, Q, H*W)."""
+    b, q, h, nh = dy.shape
+    w = dx.shape[2]
+    bias = (dy[:, :, :, None, :] + dx[:, :, None, :, :]).reshape(b, q, h * w, nh)
+    return bias.permute(0, 3, 1, 2)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, spec: Spec):
         super().__init__()
@@ -86,7 +100,9 @@ class DecoderLayer(nn.Module):
         self.dropout = Dropout(drop, spec)  # each branch's and the FFN's
 
     def forward(self, tgt, query_pos, memory, memory_pos, memory_text, text_mask,
-                separable_bias, presence, dac: bool = False):
+                cross_attn_bias, presence, dac: bool = False):
+        """``cross_attn_bias``: the separable (dy, dx, grid_hw) triple, a
+        dense (B, heads, L, HW) tensor, or None."""
         # with DAC the second half of the queries (one-to-many) skips the
         # self-attention; the presence token joins the first half
         n_o2o = tgt.shape[1] // 2 if dac else tgt.shape[1]
@@ -102,8 +118,10 @@ class DecoderLayer(nn.Module):
         tgt = self.norm2(torch.cat([tgt_o2o, tgt_o2m], dim=1) if dac else tgt_o2o)
         ca = self.ca_text(tgt + query_pos, memory_text, memory_text, key_padding_mask=text_mask)
         tgt = self.catext_norm(tgt + self.dropout(ca))
+        separable = isinstance(cross_attn_bias, tuple)
         ca = self.cross_attn(tgt + query_pos, memory + memory_pos, memory,
-                             separable_bias=separable_bias)
+                             attn_bias=None if separable else cross_attn_bias,
+                             separable_bias=cross_attn_bias if separable else None)
         tgt = self.norm1(tgt + self.dropout(ca))
         y = self.linear2(self.dropout(F.relu(self.linear1(tgt))))
         tgt = self.norm3(tgt + self.dropout(y))
@@ -133,10 +151,6 @@ class TransformerDecoder(nn.Module):
     def forward(self, memory, memory_pos, memory_text, text_mask, feat_hw,
                 apply_dac: bool = False) -> DecoderOutput:
         cfg = self.spec.model
-        if self.rpb is None:
-            raise NotImplementedError("box_rpb='none' is not ported yet")
-        if not cfg.dec_separable_bias:
-            raise NotImplementedError("the dense boxRPB oracle is not ported")
         remat = self.training and torch.is_grad_enabled() and cfg.dec_remat
         dt = self.spec.dtype
         b, d, nq = memory.shape[0], cfg.d_model, cfg.num_queries
@@ -156,13 +170,21 @@ class TransformerDecoder(nn.Module):
         ref_grad = ref
         for layer in self.layers:
             query_pos = self.ref_point_head(gen_sineembed_for_position(ref, d))
-            dy, dx = self.rpb(ref, feat_hw)
-            if presence is not None:
-                # the presence row attends with zero bias
-                dy = torch.cat([torch.zeros_like(dy[:, :1]), dy], dim=1)
-                dx = torch.cat([torch.zeros_like(dx[:, :1]), dx], dim=1)
+            bias = None
+            if self.rpb is not None:
+                dy, dx = self.rpb(ref, feat_hw)
+                if cfg.dec_separable_bias:
+                    if presence is not None:
+                        # the presence row attends with zero bias
+                        dy = torch.cat([torch.zeros_like(dy[:, :1]), dy], dim=1)
+                        dx = torch.cat([torch.zeros_like(dx[:, :1]), dx], dim=1)
+                    bias = (dy, dx, feat_hw)
+                else:
+                    bias = rpb_dense_bias(dy, dx)
+                    if presence is not None:
+                        bias = torch.cat([torch.zeros_like(bias[:, :, :1]), bias], dim=2)
             args = (tgt, query_pos, memory, memory_pos, memory_text, text_mask,
-                    (dy, dx, feat_hw), presence, apply_dac)
+                    bias, presence, apply_dac)
             tgt, presence = checkpoint(layer, layer, *args) if remat else layer(*args)
             normed = self.norm(tgt)
             delta = self.bbox_embed(normed).float()

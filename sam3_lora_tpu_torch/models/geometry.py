@@ -1,12 +1,16 @@
-"""Geometry (box/point) prompt encoder (port of
-``sam3_lora_tpu/models/geometry.py``; the mask-prompt path stays off, as in
-the released model).
+"""Geometry (box/point/mask) prompt encoder (port of
+``sam3_lora_tpu/models/geometry.py``).
 
 Boxes live in a fixed (B, P, 4) tensor with a (B, P) True = pad mask; each is
 embedded by a direct projection + ROI-align pooling + sine PE + a label
 embedding. A CLS token is appended, the sequence is projected and normed,
 then cross-attends to the stride-14 image tokens through ``geo_layers``
 encoder layers. Output: [P box slots | Pp point slots | CLS].
+
+With ``geo_mask_prompts`` (off in the released model) a mask prompt runs
+through a ``SimpleMaskEncoder`` on the pre-normed feature grid, and its H*W
+tokens (features + sine PE) are appended after the encode layers, which they
+skip, with the prompt's padding broadcast over them.
 """
 
 from __future__ import annotations
@@ -22,12 +26,15 @@ from ..ops.posenc import encode_boxes, encode_xy
 from ..ops.sampling import grid_sample, roi_align
 from .fusion_encoder import EncoderLayer
 from .layers import Conv2d, Embedding, LayerNorm, LoRALinear, Spec
+from .tracker import SimpleMaskEncoder
 
 
 @dataclasses.dataclass
 class GeoPrompt:
     """boxes (B, P, 4) normalized cxcywh; mask (B, P) True = padding; labels
-    (B, P) int, 1 = positive. Points (B, Pp, 2) normalized xy, likewise."""
+    (B, P) int, 1 = positive. Points (B, Pp, 2) normalized xy, likewise. One
+    mask prompt a row: mask_embeddings (B, 1, Hm, Wm) float mask scores,
+    mask_mask (B, 1) True = padding, mask_labels (B, 1) int."""
 
     boxes: torch.Tensor
     mask: torch.Tensor
@@ -35,6 +42,9 @@ class GeoPrompt:
     points: Optional[torch.Tensor] = None
     points_mask: Optional[torch.Tensor] = None
     points_labels: Optional[torch.Tensor] = None
+    mask_embeddings: Optional[torch.Tensor] = None
+    mask_mask: Optional[torch.Tensor] = None
+    mask_labels: Optional[torch.Tensor] = None
 
     @staticmethod
     def empty(batch: int, num_slots: int, device=None) -> "GeoPrompt":
@@ -49,9 +59,6 @@ class GeometryEncoder(nn.Module):
     def __init__(self, spec: Spec):
         super().__init__()
         cfg = spec.model
-        if cfg.geo_mask_prompts:
-            raise NotImplementedError("the port's geometry encoder takes no mask prompts "
-                                      "(geo_mask_prompts=True)")
         d = cfg.d_model
         self.spec = spec
         self.img_pre_norm = LayerNorm(d, spec)
@@ -75,6 +82,10 @@ class GeometryEncoder(nn.Module):
             for _ in range(cfg.geo_layers)
         )
         self.encode_norm = LayerNorm(d, spec)
+        self.mask_encoder = (
+            SimpleMaskEncoder(spec, out_dim=d, in_dim=d, num_fuser_layers=cfg.geo_mask_fuser_layers)
+            if cfg.geo_mask_prompts else None
+        )
 
     def forward(
         self,
@@ -83,7 +94,8 @@ class GeometryEncoder(nn.Module):
         img_pos: torch.Tensor,    # (B, HW, D)
         feat_hw: Tuple[int, int],
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (geo_tokens (B, P+Pp+1, D), geo_mask (B, P+Pp+1) True = pad)."""
+        """-> (geo_tokens (B, P+Pp+1 [+HW], D), geo_mask (B, P+Pp+1 [+HW])
+        True = pad); the HW mask tokens come with a mask prompt."""
         cfg = self.spec.model
         dt = self.spec.dtype
         d = cfg.d_model
@@ -126,4 +138,12 @@ class GeometryEncoder(nn.Module):
         seq = self.norm(self.final_proj(seq))
         for layer in self.encode:
             seq = layer(seq, img_feats, None, img_pos, mask, None)
-        return self.encode_norm(seq).to(dt), mask
+        seq = self.encode_norm(seq).to(dt)
+        if self.mask_encoder is not None and prompt.mask_embeddings is not None:
+            enc = self.mask_encoder(feats_grid.to(dt), prompt.mask_embeddings.float(),
+                                    skip_mask_sigmoid=True)
+            mtok = (enc["vision_features"] + enc["vision_pos_enc"]).reshape(b, d, -1).transpose(1, 2)
+            mpad = prompt.mask_mask.expand(b, mtok.shape[1])  # one mask a row
+            seq = torch.cat([seq, mtok.to(dt).masked_fill(mpad[..., None], 0.0)], dim=1)
+            mask = torch.cat([mask, mpad], dim=1)
+        return seq, mask

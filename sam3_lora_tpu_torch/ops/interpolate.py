@@ -8,13 +8,16 @@ import torch
 import torch.nn.functional as F
 
 
-def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """x: (..., H, W) -> (..., size), half-pixel bilinear without antialias,
-    computed in fp32."""
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int], antialias: bool = False) -> torch.Tensor:
+    """x: (..., H, W) -> (..., size), half-pixel bilinear computed in fp32:
+    without antialias the JAX package's ``resize_bilinear``, with it
+    ``jax.image.resize(..., "bilinear")`` (the two differ only where a side
+    shrinks; the edge taps are renormalized, which for an upscale is
+    torch's clamp of the sample position)."""
     lead = x.shape[:-2]
     y = F.interpolate(
         x.float().reshape(-1, 1, *x.shape[-2:]), size=tuple(size),
-        mode="bilinear", align_corners=False,
+        mode="bilinear", align_corners=False, antialias=antialias,
     )
     return y.reshape(*lead, *size).to(x.dtype)
 

@@ -65,3 +65,12 @@ def gen_sineembed_for_position(pos: torch.Tensor, num_feats: int = 256) -> torch
     order = [1, 0] if pos.shape[-1] == 2 else [1, 0, 2, 3]
     parts = [_interleave_sin_cos((pos[..., j] * TWO_PI)[..., None] / dim_t) for j in order]
     return torch.cat(parts, dim=-1)
+
+
+def get_1d_sine_pe(pos: torch.Tensor, dim: int, temperature: float = 10000.0) -> torch.Tensor:
+    """1D sine PE of the tracker's temporal embedding: (...,) positions ->
+    (..., dim), the [sin | cos] halves."""
+    pe_dim = dim // 2
+    dim_t = _dim_t(pe_dim, temperature, pos.device)
+    x = pos.float()[..., None] / dim_t
+    return torch.cat([torch.sin(x), torch.cos(x)], dim=-1)

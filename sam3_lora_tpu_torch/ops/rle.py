@@ -1,10 +1,13 @@
-"""COCO run-length encoding (host side, numpy/PIL): the port's own copy of
-``sam3_lora_tpu/ops/rle.py``'s numpy codec.
+"""COCO run-length encoding (host side): the port's own copy of
+``sam3_lora_tpu/ops/rle.py``.
 
 * ``rle_encode`` / ``rle_decode``: COCO compressed RLE (column-major runs,
   the first run counting zeros, the counts delta-coded in 6-bit chars
-  offset by 48), byte for byte the JAX package's ``rle_encode_numpy`` and
-  pycocotools' rleToString / rleFrString;
+  offset by 48), through the native codec (``ops/rle_native.py``, which
+  raises when it cannot be built); ``rle_encode_numpy`` /
+  ``rle_decode_numpy`` are the plain versions it is held against, byte for
+  byte the JAX package's ``rle_encode_numpy`` and pycocotools' rleToString /
+  rleFrString;
 * ``segmentation_to_mask``: a COCO ``segmentation`` field, polygons (PIL's
   polygon fill) or RLE (compressed string or uncompressed counts), to an
   (H, W) uint8 mask;
@@ -18,6 +21,8 @@ from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
+
+from . import rle_native
 
 
 def _mask_to_counts(mask: np.ndarray) -> np.ndarray:
@@ -52,10 +57,15 @@ def _counts_to_string(counts: np.ndarray) -> str:
     return "".join(out)
 
 
-def rle_encode(mask: np.ndarray) -> Dict:
-    """Binary (H, W) mask -> COCO compressed RLE dict."""
+def rle_encode_numpy(mask: np.ndarray) -> Dict:
+    """Binary (H, W) mask -> COCO compressed RLE dict (the plain version)."""
     h, w = mask.shape
     return {"size": [int(h), int(w)], "counts": _counts_to_string(_mask_to_counts(mask))}
+
+
+def rle_encode(mask: np.ndarray) -> Dict:
+    """Binary (H, W) mask -> COCO compressed RLE dict (the native codec)."""
+    return rle_native.rle_encode(mask)
 
 
 def rle_area(rle: Dict) -> int:
@@ -91,7 +101,13 @@ def _string_to_counts(s: Union[str, bytes]) -> np.ndarray:
 
 
 def rle_decode(rle: Dict) -> np.ndarray:
-    """COCO RLE dict (compressed string or uncompressed list) -> (H, W) uint8."""
+    """COCO RLE dict (compressed string or uncompressed list) -> (H, W) uint8
+    (the native codec)."""
+    return rle_native.rle_decode(rle)
+
+
+def rle_decode_numpy(rle: Dict) -> np.ndarray:
+    """COCO RLE dict -> (H, W) uint8 (the plain version)."""
     h, w = rle["size"]
     counts = rle["counts"]
     if isinstance(counts, (str, bytes)):

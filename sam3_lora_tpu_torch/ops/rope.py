@@ -4,9 +4,14 @@
 unchanged. ``apply_rope_half`` rotates q/k whose channels are in rotate-half
 layout (all even pair-members, then all odd ones); the weight bridge folds
 that column permutation into the ViT qkv projection once, at load.
+``apply_rope`` rotates adjacent channel pairs (2i, 2i+1), as
+``torch.view_as_complex`` pairs them: the tracker's memory attention uses
+it, with unpermuted projections.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -30,6 +35,19 @@ def compute_axial_freqs(
     t_x = (t % end_x) * scale_pos + offset
     t_y = np.floor(t / end_x) * scale_pos + offset
     return np.concatenate([np.outer(t_x, freqs), np.outer(t_y, freqs)], axis=-1)
+
+
+def rope_cos_sin(angles) -> Tuple[torch.Tensor, torch.Tensor]:
+    a = torch.as_tensor(angles, dtype=torch.float32)
+    return torch.cos(a), torch.sin(a)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the adjacent channel pairs (2i, 2i+1) of x (..., L, D) by
+    (L, D//2) angle tables, in fp32, cast back to x's dtype."""
+    xf = x.float()
+    xe, xo = xf[..., 0::2], xf[..., 1::2]
+    return torch.stack([xe * cos - xo * sin, xe * sin + xo * cos], dim=-1).reshape(x.shape).to(x.dtype)
 
 
 def rope_half_perm(head_dim: int) -> np.ndarray:

@@ -17,6 +17,7 @@ no PIL for an array.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -94,17 +95,24 @@ class Sam3Processor:
         mask_prompt: Optional[np.ndarray] = None,
     ) -> Dict[str, Any]:
         """Ground one text prompt (and optional box prompts, normalized
-        cxcywh in [0, 1]) against the cached image. -> prompt, scores (N,),
-        boxes (N, 4) xyxy in original pixels, masks_lowres (N, m, m) bool,
-        presence, num_detections."""
+        cxcywh in [0, 1], and one mask prompt, an (H, W) binary or float
+        mask at any resolution, which needs ``geo_mask_prompts``) against
+        the cached image. -> prompt, scores (N,), boxes (N, 4) xyxy in
+        original pixels, masks_lowres (N, m, m) bool, presence,
+        num_detections."""
         if self._state is None:
             raise RuntimeError("call set_image() first")
-        if mask_prompt is not None:
-            # the model cannot hold the other case: its geometry encoder
-            # refuses geo_mask_prompts
-            raise ValueError("mask prompts need ModelConfig(geo_mask_prompts=True)")
         thr = self.threshold if threshold is None else threshold
-        scores, presence, boxes_out, masks = self.ground(prompt, self.geo_prompt(boxes, box_labels))
+        geo = self.geo_prompt(boxes, box_labels)
+        if mask_prompt is not None:
+            if not self.cfg.geo_mask_prompts:
+                raise ValueError("mask prompts need ModelConfig(geo_mask_prompts=True)")
+            m = torch.from_numpy(np.asarray(mask_prompt, np.float32)).to(self.device)
+            geo = dataclasses.replace(
+                geo, mask_embeddings=m[None, None],
+                mask_mask=torch.zeros((1, 1), dtype=torch.bool, device=self.device),
+                mask_labels=torch.ones((1, 1), dtype=torch.long, device=self.device))
+        scores, presence, boxes_out, masks = self.ground(prompt, geo)
         pres = float(presence[0])
         s = scores[0].cpu().numpy() * pres
         keep = s > thr

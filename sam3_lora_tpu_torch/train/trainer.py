@@ -93,11 +93,14 @@ def clip_by_global_norm_(params: List[torch.nn.Parameter], max_norm: float) -> t
     return norm
 
 
-def apply_update(optimizer: torch.optim.Optimizer, params, lr: float, max_grad_norm: float):
-    """Clip, step at ``lr``, clear the gradients."""
-    clip_by_global_norm_(params, max_grad_norm)
+def apply_update(optimizer: torch.optim.Optimizer, params, lr: float,
+                 max_grad_norm: Optional[float]):
+    """Clip (unless ``max_grad_norm`` is None), step each param group at
+    ``lr`` times its ``lr_scale`` (1 without one), clear the gradients."""
+    if max_grad_norm is not None:
+        clip_by_global_norm_(params, max_grad_norm)
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_scale", 1.0)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
 

@@ -23,6 +23,14 @@ bf16 leaves (``param_dtype="bfloat16"`` storage) arrive as ``ml_dtypes``
 bfloat16 arrays in memory, or as 2-byte void arrays from an ``.npz`` (numpy
 keeps the bits but not the type); both become bf16 tensors, bit for bit.
 
+A JAX param tree (the nested dict of a Flax ``init``, e.g. a ``TrackerCore``'s,
+numpy or jax arrays) is flattened to the same '.'-joined names
+(``flatten_tree``) and loads the same way (``load_jax_tree``). The raw
+parameters of the SAM heads and the tracker (the Gaussian matrix of the
+prompt encoder, ``no_mem_embed``, ``maskmem_tpos_enc``, the layer scales,
+the embedding tables) keep their layout, as do the transposed convs'
+``weight`` leaves.
+
 ``load_jax_params`` then folds the rotate-half column permutation of the ViT
 qkv projection (which the JAX module applies at every call) into the q/k
 output channels of ``weight``, ``bias``, ``lora_b`` and ``weight_scale``,
@@ -33,7 +41,7 @@ the prequantized int8 route); a float one is copied in the parameter's dtype.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -153,10 +161,12 @@ def _fold_out_perm(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> None:
                     tensors[key] = tensors[key][m.out_perm]
 
 
-def load_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor], strict: bool = True) -> int:
+def load_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor], strict: bool = True,
+                 optional: Sequence[str] = ()) -> int:
     """Copy torch-layout tensors (JAX channel order) into the model. Every
     key must name a parameter; with ``strict`` every non-adapter parameter
-    must be given. Returns the number copied."""
+    must be given, but those under a prefix in ``optional``. Returns the
+    number copied."""
     tensors = dict(tensors)
     _fold_out_perm(model, tensors)
     params = dict(model.named_parameters())
@@ -168,6 +178,7 @@ def load_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor], strict: boo
     missing = sorted(
         k for k in set(params) - set(tensors)
         if not k.endswith(("lora_a", "lora_b", "weight_scale"))
+        and not k.startswith(tuple(optional))
     )
     if missing and strict:
         raise KeyError(f"{len(missing)} model params missing from checkpoint (first: {missing[:5]})")
@@ -198,3 +209,22 @@ def load_base_checkpoint(model: nn.Module, path: str, strict: bool = True) -> in
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return load_jax_params(model, flat, strict=strict)
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested param dict (a Flax ``init``'s ``params``) -> flat '.'-joined
+    numpy arrays, the JAX package's checkpoint naming."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, name + "."))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def load_jax_tree(module: nn.Module, tree: Mapping[str, Any], optional: Sequence[str] = ()) -> int:
+    """Load a JAX param tree (e.g. a ``TrackerCore``'s) into the port's
+    module, strictly but for the prefixes in ``optional``."""
+    return load_tensors(module, params_from_jax(flatten_tree(tree)), optional=optional)

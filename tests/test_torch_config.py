@@ -57,19 +57,26 @@ def test_load_yaml_config_equals_jax(tmp_path):
     assert model_config_from_yaml({"dtype": "float32"}) == tc.ModelConfig(dtype="float32")
 
 
-@pytest.mark.parametrize("entry", ["trainer", "inference", "processor"])
+@pytest.mark.parametrize("entry", ["trainer", "inference", "processor", "predictor"])
 def test_entry_points_default_to_the_card(entry):
-    """With no device, ``Trainer``, ``SAM3LoRAInference`` and
-    ``Sam3Processor`` build on CUDA: on a host without a card that raises
-    (nothing falls back to the CPU)."""
+    """With no device, ``Trainer``, ``SAM3LoRAInference``, ``Sam3Processor``
+    and ``SAM3InteractiveImagePredictor`` (on a default processor) build on
+    CUDA: on a host without a card that raises (nothing falls back to the
+    CPU)."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default is then simply usable")
     if entry == "trainer":
         from sam3_lora_tpu_torch.train.trainer import Trainer as cls
     elif entry == "inference":
         from sam3_lora_tpu_torch.inference import SAM3LoRAInference as cls
-    else:
+    elif entry == "processor":
         from sam3_lora_tpu_torch.processor import Sam3Processor as cls
+    else:
+        from sam3_lora_tpu_torch.predictor import SAM3InteractiveImagePredictor
+        from sam3_lora_tpu_torch.processor import Sam3Processor
+
+        def cls(cfg):
+            return SAM3InteractiveImagePredictor(Sam3Processor(cfg))
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
         cls(tc.tiny_model_config())
 

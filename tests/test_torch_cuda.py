@@ -24,7 +24,9 @@ launch layout and their SASS against ``window_cost.OP_MIX``), the full rung
 bit for bit equal to the production forward, the packed layout's
 backward. The serving path's mask IoU and NMS (``ops/masks.py``,
 ``ops/nms.py``, and chip_smoke's device loop) on the card, bit for bit the
-CPU's."""
+CPU's. The interactive predictor's SAM heads on the card against their fp32
+CPU run, and the decoder's dense boxRPB oracle against its separable route,
+at the full width (``chip_smoke.SMALL_TOL``)."""
 
 import numpy as np
 import pytest
@@ -785,3 +787,34 @@ def test_nms_on_the_card_equals_the_cpu(gen, impl):
             got = (nms_masks(m, s, thr, valid=vc) if impl == "nms_masks"
                    else chip_smoke.nms_device_loop(iou, s, thr, valid=vc))
             assert got.is_cuda and torch.equal(got.cpu(), want), (thr, v is None)
+
+
+def test_sam_heads_on_the_card_match_the_cpu(gen):
+    """The interactive predictor's SAM heads at the full width (d 256 over
+    the 72x72 grid, high-res maps at 288 and 144), bf16 on the card, against
+    the same heads in fp32 on the CPU on the same features: multimask logits
+    and IoU within chip_smoke.SMALL_TOL * max |cpu|."""
+    from sam3_lora_tpu_torch.config import ModelConfig
+    from sam3_lora_tpu_torch.models import init_model
+    from sam3_lora_tpu_torch.predictor import SAM3InteractiveImagePredictor, tracker_core
+
+    cfg = ModelConfig(dtype="bfloat16")
+    pred = SAM3InteractiveImagePredictor.__new__(SAM3InteractiveImagePredictor)
+    pred.cfg, pred.device = cfg, torch.device("cuda")
+    pred.core = init_model(tracker_core(cfg, pred.device), gen).eval()
+    d, f = cfg.d_model, cfg.feat_size
+    pred._features = {k: torch.randn(1, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+                      for k, s in (("vis", f), ("hi0", 4 * f), ("hi1", 2 * f))}
+    pred._orig_size = (900, 1200)
+    worst = chip_smoke.heads_against_cpu(pred, (chip_smoke.CLICK, chip_smoke.BOX_CLICK))
+    assert worst <= chip_smoke.SMALL_TOL, worst
+
+
+def test_dense_rpb_oracle_matches_separable_route_at_full_width(gen):
+    """The decoder's dense boxRPB oracle against the separable route at the
+    full width (200 queries, 6 layers, 72x72 keys), bf16, within
+    chip_smoke.SMALL_TOL; a box_rpb="none" decoder finite."""
+    from sam3_lora_tpu_torch.config import ModelConfig
+
+    worst, finite = chip_smoke.decoder_options(ModelConfig(dtype="bfloat16"), "cuda", gen)
+    assert worst <= chip_smoke.SMALL_TOL and finite, (worst, finite)

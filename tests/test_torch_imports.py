@@ -1,8 +1,8 @@
 """The PyTorch port imports nothing of JAX or Flax, and nothing of the JAX
 package (``sam3_lora_tpu``), serving and training alike: the machine with
 the GPU has no use for them, and the port keeps its own copies of what it
-needs (config, tokenizer, datapoint transforms, the RLE codec, the image
-evaluators)."""
+needs (config, tokenizer, datapoint transforms, the RLE codec and its C++
+source, the image evaluators, ``cli/prepare_data.py``, ``interactive.py``)."""
 
 import os
 import subprocess
@@ -29,6 +29,10 @@ CODE = (
     "import sam3_lora_tpu_torch.eval.tide, sam3_lora_tpu_torch.eval.writer\n"
     "import sam3_lora_tpu_torch.cli.validate, sam3_lora_tpu_torch.cli.compare\n"
     "r.rle_decode(r.rle_encode(__import__('numpy').eye(3, dtype=bool)))\n"
+    "import sam3_lora_tpu_torch.ops.rle_native, sam3_lora_tpu_torch.train.optim\n"
+    "import sam3_lora_tpu_torch.cli.prepare_data, sam3_lora_tpu_torch.interactive\n"
+    "import sam3_lora_tpu_torch.models.sam_heads, sam3_lora_tpu_torch.models.tracker\n"
+    "import sam3_lora_tpu_torch.predictor\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"

@@ -17,7 +17,14 @@ low-resolution masks equal but for pixels whose probability lies within
 prompts (more boxes than slots, a negative label). Also: ``set_text_prompt``
 runs no backbone; each call's kernel entries, counted on the CPU through
 the card's routes, equal ``chip_smoke``'s ``set_image_launches`` and
-``prompt_launches``, bf16 routes and the int8 tier with K5."""
+``prompt_launches``, bf16 routes and the int8 tier with K5.
+
+Mask prompts (``geo_mask_prompts=True``): a 40x60 mask prompt alone and with
+box prompts against the JAX processor with the option on, at the same
+tolerance; the JAX results are stored in ``tests/data/
+torch_ref_mask_prompt.npz`` (``test_mask_prompt_reference_is_current``, slow,
+recomputes them; the ``__main__`` below rewrites both files). With the option
+off both processors refuse a mask prompt."""
 
 import collections
 import json
@@ -26,6 +33,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from flax import traverse_util
 
 import chip_smoke
@@ -35,7 +43,6 @@ from sam3_lora_tpu.models import build_sam3_image_model as build_jax
 from sam3_lora_tpu.models.geometry import GeoPrompt as JGeoPrompt
 from sam3_lora_tpu.models.sam3_image import Batch as JBatch
 from sam3_lora_tpu_torch import config as tc
-from sam3_lora_tpu_torch.models import build_sam3_image_model
 from sam3_lora_tpu_torch.ops import attention_kernel as ak
 from sam3_lora_tpu_torch.ops import gemm_int8
 from sam3_lora_tpu_torch.ops import window_attention as wa
@@ -179,15 +186,102 @@ def test_set_text_prompt_runs_no_backbone(pair, monkeypatch):
     assert calls["backbone_image"] == 1
 
 
-def test_processor_needs_an_image_and_refuses_mask_prompts():
+MASK = np.zeros((40, 60), np.float32)
+MASK[8:30, 10:45] = 1.0
+MASK_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "torch_ref_mask_prompt.npz")
+MASK_CALLS = (("crack", None, None), ("crack", BOXES[:2], [1, 0]))
+
+
+def jax_mask_prompt_reference():
+    """-> (parameter shapes, the JAX processor's results of MASK_CALLS with
+    MASK as the mask prompt), ``geo_mask_prompts=True``, weights from numpy
+    seed 0."""
+    cfg = tiny_model_config(geo_mask_prompts=True)
+    jm = build_jax(cfg, lora=LORA)
+    r = cfg.img_size
+    geo = JGeoPrompt.empty(1, cfg.max_prompt_boxes).replace(
+        mask_embeddings=jnp.zeros((1, 1, r, r)), mask_mask=jnp.ones((1, 1), bool),
+        mask_labels=jnp.ones((1, 1), jnp.int32))
+    jb = JBatch(images=jnp.zeros((1, 3, r, r)), token_ids=jnp.zeros((1, cfg.text_context_length),
+                                                                     jnp.int32),
+                img_ids=jnp.zeros((1,), jnp.int32), geo=geo)
+    specs = param_specs(jm, jb, train=False)
+    flat = fill_params(specs)
+    params = traverse_util.unflatten_dict({path: jnp.asarray(flat[".".join(path)])
+                                           for path, _ in specs})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_processor, "init_model", lambda model, key: params)
+        ref = jax_processor.Sam3Processor(cfg, LORA)
+    ref.set_image(IMAGE)
+    results = [ref.set_text_prompt(p, boxes=b, box_labels=lab, threshold=0.0, mask_prompt=MASK)
+               for p, b, lab in MASK_CALLS]
+    return [[".".join(path), list(shape)] for path, shape in specs], results
+
+
+def write_mask_prompt_reference(path: str = MASK_REF) -> str:
+    specs, results = jax_mask_prompt_reference()
+    arrays = {f"{i}/{k}": np.asarray(res[k]) for i, res in enumerate(results) for k in KEYS}
+    np.savez(path, params=json.dumps(specs), **arrays)
+    return path
+
+
+def load_mask_prompt_reference(path: str = MASK_REF):
+    with np.load(path) as data:
+        specs = [(tuple(name.split(".")), tuple(shape))
+                 for name, shape in json.loads(str(data["params"]))]
+        results = [{k: data[f"{i}/{k}"] for k in KEYS} for i in range(len(MASK_CALLS))]
+    return specs, results
+
+
+def check_mask_prompts(specs, want):
+    proc = Sam3Processor(tc.tiny_model_config(geo_mask_prompts=True), TLORA, device="cpu")
+    load_jax_params(proc.model, fill_params(specs))
+    proc.set_image(IMAGE)
+    for (prompt, boxes, labels), ref in zip(MASK_CALLS, want):
+        got = proc.set_text_prompt(prompt, boxes=boxes, box_labels=labels, threshold=0.0,
+                                   mask_prompt=MASK)
+        assert got["num_detections"] == int(ref["num_detections"]) > 0
+        np.testing.assert_allclose(got["presence"], ref["presence"], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got["scores"], ref["scores"], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got["boxes"], ref["boxes"], rtol=TOL, atol=TOL * 60)
+    # the mask prompt moves the grounding, and its h*w tokens join the prompt
+    plain = proc.set_text_prompt("crack", threshold=0.0)
+    masked = proc.set_text_prompt("crack", threshold=0.0, mask_prompt=MASK)
+    assert not np.allclose(plain["scores"], masked["scores"])
+    geo = proc.geo_prompt(None)
+    geo.mask_embeddings = torch.from_numpy(MASK)[None, None]
+    geo.mask_mask = torch.zeros((1, 1), dtype=torch.bool)
+    geo.mask_labels = torch.ones((1, 1), dtype=torch.long)
+    feats = proc._state["feats"][-1]
+    tokens = feats.flatten(2).transpose(1, 2)
+    seq, mask = proc.model.geometry_encoder(geo, tokens, tokens, feats.shape[-2:])
+    fh = proc.cfg.feat_size
+    assert seq.shape[1] == mask.shape[1] == proc.cfg.max_prompt_boxes + 1 + fh * fh
+    assert not mask[0, -fh * fh:].any()
+
+
+def test_processor_needs_an_image_and_takes_mask_prompts_with_the_option():
+    """No image: refused. A mask prompt with ``geo_mask_prompts`` off:
+    refused, as JAX's processor refuses it; with it on: the JAX processor's
+    results (the stored reference)."""
     proc = Sam3Processor(tc.tiny_model_config(), device="cpu")
     with pytest.raises(RuntimeError, match="set_image"):
         proc.set_text_prompt("crack")
     proc.set_image(IMAGE)
     with pytest.raises(ValueError, match="geo_mask_prompts"):
         proc.set_text_prompt("crack", mask_prompt=np.ones((8, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="mask prompts"):
-        build_sam3_image_model(tc.tiny_model_config(geo_mask_prompts=True), device="cpu")
+    check_mask_prompts(*load_mask_prompt_reference())
+
+
+def test_mask_prompt_reference_is_current():
+    specs, live = jax_mask_prompt_reference()
+    stored_specs, stored = load_mask_prompt_reference()
+    assert [[".".join(p), list(s)] for p, s in stored_specs] == specs
+    for got, want in zip(stored, live):
+        for k in KEYS:
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+    check_mask_prompts([(tuple(n.split(".")), tuple(sh)) for n, sh in specs], live)
 
 
 @pytest.fixture
@@ -240,3 +334,4 @@ def test_launch_counts_match_chip_smoke(launches, monkeypatch, int8):
 
 if __name__ == "__main__":
     print(write_reference())
+    print(write_mask_prompt_reference())

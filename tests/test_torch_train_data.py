@@ -107,3 +107,16 @@ def test_dummy_batch_equals_jax(with_targets):
     for p, j in pairs:
         assert tuple(p.shape) == tuple(j.shape)
         np.testing.assert_array_equal(p.numpy(), np.asarray(j))
+
+
+def test_dummy_batch_with_mask_prompts_equals_jax():
+    """With ``geo_mask_prompts`` both packages' zero batches carry one padded
+    mask prompt a row (JAX's materializes the mask encoder's parameters)."""
+    cfg = tiny_model_config(geo_mask_prompts=True)
+    jb = jax_dummy_batch(cfg, batch_size=2)
+    pb = dummy_batch(cfg, batch_size=2)
+    for f in ("mask_embeddings", "mask_mask", "mask_labels"):
+        p, j = getattr(pb.geo, f), getattr(jb.geo, f)
+        assert tuple(p.shape) == tuple(j.shape), f
+        np.testing.assert_array_equal(p.numpy(), np.asarray(j), err_msg=f)
+    assert dummy_batch(tiny_model_config(), batch_size=2).geo.mask_embeddings is None

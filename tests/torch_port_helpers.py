@@ -78,3 +78,35 @@ def to_np(x) -> np.ndarray:
 
 def assert_close(port, ref, rtol: float, atol: float, name: str = "") -> None:
     np.testing.assert_allclose(to_np(port), to_np(ref), rtol=rtol, atol=atol, err_msg=name)
+
+
+def save_reference(path: str, specs, arrays) -> str:
+    """Store a JAX reference: the parameter specs it was drawn at (as
+    ``fill_params`` takes them) and its result arrays."""
+    import json
+
+    np.savez(path, params=json.dumps([[".".join(p), list(s)] for p, s in specs]),
+             **{k: np.asarray(v) for k, v in arrays.items()})
+    return path
+
+
+def load_reference(path: str):
+    """-> (specs, {name: array}) as ``save_reference`` stored them."""
+    import json
+
+    with np.load(path) as data:
+        specs = [(tuple(n.split(".")), tuple(s)) for n, s in json.loads(str(data["params"]))]
+        return specs, {k: data[k] for k in data.files if k != "params"}
+
+
+def nested(flat):
+    """A flat '.'-joined dict -> the nested dict of a Flax param tree (split
+    at every '.'; ``utils/checkpoint.py::flatten_tree`` joins it back)."""
+    out = {}
+    for name, arr in flat.items():
+        *head, leaf = name.split(".")
+        node = out
+        for part in head:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return out
