@@ -97,15 +97,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    dense boxRPB oracle within SMALL_TOL of the separable
                    route on one set of full-width weights and inputs; a
                    box_rpb="none" decoder's outputs finite.
- 14. int8_bwd    - one full-width training step with base_quant="int8_bwd".
- 15. small       - a small config whose path runs every attention kernel: its
+ 14. video       - VideoGrounder(propagate=True) on a bf16 Sam3Processor at
+                   the full config, 16 slots, 7 memory frames, 16 pointers,
+                   over 12 seeded 1200x900 frames with one prompt and
+                   prob_threshold 0: each frame K1 x28, K2 x4, K3 x6 and
+                   nothing else, finite logits, unique live ids, consistent
+                   ages, a ring eviction; the tracker's propagate and memory
+                   update on two live slots within SMALL_TOL of their fp32
+                   CPU run; the association (mask IoU and the auction) and
+                   the batched connected components (and the hole filling)
+                   bit for bit the CPU's; host s a frame, one profiled
+                   frame, each stage's host s, the memory attention's ms,
+                   peak memory; Sam3TrackerPredictor (a click, a box for a
+                   second object, propagate_in_video over the frames: K1/K2
+                   once a frame, finite, memory written) and
+                   Sam3VideoPredictor (two sessions interleaved, the first
+                   again alone: equal outputs).
+ 15. int8_bwd    - one full-width training step with base_quant="int8_bwd".
+ 16. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
                    fp32 on the CPU; again with its ViT in the int8 tier; at
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
- 16. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+ 17. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
                    window_cost, dma_floor, packed) at bench.py's batch 8
                    through their rows(): every stage rung (K1's own kernel
                    at each stage), op rate, work-per-CTA sweep and the
@@ -188,6 +204,14 @@ from sam3_lora_tpu_torch.train.data import DataLoader, Sample
 from sam3_lora_tpu_torch.train.losses import compute_losses
 from sam3_lora_tpu_torch.train.prefetch import batch_to_device
 from sam3_lora_tpu_torch.train.trainer import Trainer
+from sam3_lora_tpu_torch.ops.association import associate_det_trk
+from sam3_lora_tpu_torch.ops.cc import connected_components
+from sam3_lora_tpu_torch.tracking_predictor import Sam3TrackerPredictor
+from sam3_lora_tpu_torch.video import (
+    TrackState, VideoGrounder, fill_holes_in_mask_scores, make_tracker_fns, memory_bank,
+    video_tracker_core,
+)
+from sam3_lora_tpu_torch.video_predictor import Sam3VideoPredictor
 
 SEED = 0
 LSE_ATOL = 2e-3    # natural-log units; measured 6.4e-4 (K1, bf16-rounded rotated q, k)
@@ -1566,6 +1590,307 @@ def phase_model_options(g: torch.Generator):
     torch.cuda.empty_cache()
 
 
+# the video phase: VIDEO_FRAMES frames at 1200x900, so that the ring of
+# num_maskmem - 1 recent frames evicts (7 - 1 = 6 ring slots fill by the
+# seventh frame after a spawn)
+VIDEO_FRAMES = 12
+VIDEO_SLOTS, VIDEO_MASKMEM, VIDEO_PTRS = 16, 7, 16
+VIDEO_CPU_SLOTS = 2  # live slots held against the fp32 CPU run (each slot is independent)
+
+
+def video_frames(n: int, seed: int = SEED, shape=(900, 1200, 3)):
+    return [np.random.RandomState(seed + i).randint(0, 256, shape).astype(np.uint8)
+            for i in range(n)]
+
+
+def check_track_state(tag: str, st: TrackState, num_maskmem: int, max_obj_ptrs: int) -> None:
+    """Live ids unique and >= 0, free slots -1; every live slot's cond
+    memory written; its ring ages distinct and within the window (under
+    num_maskmem - 1: an evicted frame's slot is rewritten); its pointer
+    ages distinct and under max_obj_ptrs; finite mask logits."""
+    alive = st.alive.cpu().numpy()
+    ids = st.obj_ids.cpu().numpy()
+    age, page = st.maskmem_age.cpu().numpy(), st.obj_ptr_age.cpu().numpy()
+    live = ids[alive]
+    if (live < 0).any() or len(set(live.tolist())) != len(live) or (ids[~alive] != -1).any():
+        raise AssertionError(f"{tag}: ids {ids.tolist()} for alive {alive.tolist()}")
+    for s in np.flatnonzero(alive):
+        ring, ptr = age[s, 1:][age[s, 1:] >= 0], page[s][page[s] >= 0]
+        if (age[s, 0] < 0 or len(set(ring.tolist())) != len(ring)
+                or (ring >= num_maskmem - 1).any() or len(set(ptr.tolist())) != len(ptr)
+                or (ptr >= max_obj_ptrs).any()):
+            raise AssertionError(f"{tag}: slot {s} memory ages {age[s].tolist()}, "
+                                 f"pointer ages {page[s].tolist()}")
+    if not torch.isfinite(st.masks).all():
+        raise AssertionError(f"{tag}: mask logits not finite")
+
+
+def _slots(st: TrackState, idx: torch.Tensor, device) -> TrackState:
+    """The slots ``idx`` of ``st`` on ``device`` (fp32 tensors)."""
+    return TrackState(*(t.to(device) if t.dim() == 0 else t[idx.to(t.device)].to(device)
+                        for t in st))
+
+
+def tracker_against_cpu(core, st: TrackState, feats, poss, slots: torch.Tensor) -> dict:
+    """``make_tracker_fns``' propagate and update_memory on ``core``'s
+    device against the same stages in fp32 on the CPU (its weights copied),
+    for the state's ``slots`` on one frame's features: the IoU predictions,
+    SAM tokens, object logits and best masks (those whose best index agrees,
+    or whose CPU margin is within SMALL_TOL), then the memory written from
+    the same masks, logits and tokens. -> {output: max |device - cpu| / max
+    |cpu| (the object logits over max(max |cpu|, 1))}, ``index_flips``:
+    slots whose best mask differs, with their margin."""
+    dev = slots.device
+    cfg = core.spec.model
+    cpu = video_tracker_core(cfg.replace(dtype="float32"), torch.device("cpu"), core.num_maskmem,
+                             core.max_obj_ptrs)
+    cpu.load_state_dict({k: v.cpu() for k, v in core.state_dict().items()})
+    sides = []
+    for c, device in ((core, dev), (cpu, torch.device("cpu"))):
+        s = _slots(st, slots, device)
+        f = [t.to(device).float() if device.type == "cpu" else t for t in feats]
+        p = [t.to(device).float() if device.type == "cpu" else t for t in poss]
+        prop, upd = make_tracker_fns(c, c.num_maskmem, c.max_obj_ptrs)
+        sides.append((prop, upd, s, f, p))
+    outs = [prop(s, f[-1], p[-1], f[0], f[1]) for prop, _, s, f, p in sides]
+    (dm, dt, dl, di), (cm, ct, cl, ci) = [[t.float().cpu() for t in o] for o in outs]
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+
+    # the object-score logits in logit units: the random heads give logits
+    # of 1e-3-1e-2, a hundredth of the activations that make them, so their
+    # bf16 error is measured against max(max |cpu|, 1), the sigmoid's scale
+    logit_err = (dl - cl).abs().max().item() / max(cl.abs().max().item(), 1.0)
+    res = {"iou": rel(di, ci), "obj_logits": logit_err, "tokens": rel(dt, ct)}
+    same = di.argmax(-1) == ci.argmax(-1)
+    top2 = ci.topk(2, dim=-1).values
+    res["index_flips"] = [(int(i), float(top2[i, 0] - top2[i, 1])) for i in np.flatnonzero(~same)]
+    res["masks"] = rel(dm[same], cm[same]) if same.any() else 0.0
+    # the memory update from the same inputs on both sides
+    masks, tokens = dm, dt
+    logits = torch.where(sides[1][2].alive, 10.0, -10.0)
+    new = [upd(s, f[-1], masks.to(f[-1].device), logits.to(f[-1].device), tokens.to(f[-1].device))
+           for _, upd, s, f, _ in sides]
+    a, b = [TrackState(*(t.float().cpu() if t.is_floating_point() else t.cpu() for t in n))
+            for n in new]
+    res["maskmem"], res["obj_ptrs"] = rel(a.maskmem, b.maskmem), rel(a.obj_ptrs, b.obj_ptrs)
+    res["ages_equal"] = bool(torch.equal(a.maskmem_age, b.maskmem_age)
+                             and torch.equal(a.obj_ptr_age, b.obj_ptr_age))
+    return res
+
+
+def video_ops_against_cpu(det_masks, det_scores, keep, st: TrackState,
+                          fill_area: int = 16) -> dict:
+    """``associate_det_trk`` (its mask IoU and the auction) and the batched
+    connected components of the hole filling, on the tensors' device
+    against the CPU on the same inputs. -> ({name: equal bit for bit}, the
+    auction rounds the device's association ran)."""
+    from sam3_lora_tpu_torch.train import matcher
+
+    out = {}
+    rounds = [0]
+    one_round = matcher._auction_iteration
+
+    def counted(*a):
+        rounds[0] += 1
+        return one_round(*a)
+
+    matcher._auction_iteration = counted
+    try:
+        got = associate_det_trk(det_masks, st.masks, det_valid=keep, trk_valid=st.alive,
+                                det_scores=det_scores, new_det_thresh=0.0)
+    finally:
+        matcher._auction_iteration = one_round
+    want = associate_det_trk(det_masks.cpu(), st.masks.cpu(), det_valid=keep.cpu(),
+                             trk_valid=st.alive.cpu(), det_scores=det_scores.cpu(),
+                             new_det_thresh=0.0)
+    for name, a, b in zip(got._fields, got, want):
+        out[f"associate.{name}"] = torch.equal(a.cpu(), b)
+    for name, m in (("foreground", st.masks > 0), ("background", st.masks <= 0)):
+        out[f"connected_components.{name}"] = torch.equal(connected_components(m).cpu(),
+                                                          connected_components(m.cpu()))
+    out["fill_holes"] = torch.equal(fill_holes_in_mask_scores(st.masks, fill_area).cpu(),
+                                    fill_holes_in_mask_scores(st.masks.cpu(), fill_area))
+    return out, rounds[0]
+
+
+def video_stage_seconds(vg: VideoGrounder, frame, prompt: str) -> dict:
+    """Host seconds of each stage of one ``VideoGrounder.step``, each
+    stage ended by a device sync: the backbone, the prompt's grounding,
+    NMS, propagation, association, the memory update and the hole filling
+    (0 on a frame with no spawn); ``other``, the rest of the step."""
+    import sam3_lora_tpu_torch.video as vmod
+
+    secs = dict.fromkeys(("set_image", "set_text_prompt", "nms", "propagate", "associate",
+                          "update_memory", "fill_holes"), 0.0)
+    stages = ((vg.proc, "set_image", "set_image"), (vg.proc, "set_text_prompt", "set_text_prompt"),
+              (vmod, "nms_masks", "nms"), (vg, "_propagate", "propagate"),
+              (vmod, "associate_and_update", "associate"), (vg, "_update_memory", "update_memory"),
+              (vmod, "fill_holes_in_mask_scores", "fill_holes"))
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in stages]
+    for (owner, name, label), (_, _, fn) in zip(stages, originals):
+        def timed(*a, _fn=fn, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[_label] += time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, timed)
+    try:
+        total = host_seconds(lambda: vg.step(frame, prompt))[1]
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+    secs["other"] = total - sum(secs.values())
+    return secs
+
+
+def phase_video(g: torch.Generator, smi: str):
+    """VideoGrounder(propagate=True) on a bf16 Sam3Processor at the full
+    config, 16 slots, 7 memory frames, 16 pointers, over VIDEO_FRAMES
+    seeded 1200x900 frames with one prompt and prob_threshold 0 (random
+    weights then fill the slots): each frame K1 x28, K2 x4, K3 x6 and no
+    other kernel, finite logits, unique live ids, consistent ages; the
+    tracker stages against their fp32 CPU run (SMALL_TOL), association and
+    the batched connected components bit for bit the CPU's; the median
+    host s per frame after a warm-up, one profiled frame, the memory
+    attention's time in a propagated frame, peak memory. Then
+    Sam3TrackerPredictor (a click, a box for a second object,
+    propagate_in_video) and Sam3VideoPredictor (two sessions interleaved,
+    the first again alone: equal outputs)."""
+    tag = "video"
+    proc = Sam3Processor(model_config(False), LORA, seed=SEED, device="cuda")
+    cfg = proc.cfg
+    live_adapters(proc.model, g)
+    frames = video_frames(VIDEO_FRAMES)
+    prompt = "crack"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vg = VideoGrounder(proc, num_slots=VIDEO_SLOTS, prob_threshold=0.0, propagate=True,
+                       num_maskmem=VIDEO_MASKMEM, max_obj_ptrs=VIDEO_PTRS)
+    want = {**set_image_launches(cfg), **prompt_launches(cfg)}
+    secs, n_alive, evicted = [], [], 0
+    for i, frame in enumerate(frames):
+        reset_counts()
+        out, s = host_seconds(lambda: vg.step(frame, prompt))
+        secs.append(s)
+        check_launches(f"{tag} frame {i}", counts(), want)
+        check_track_state(f"{tag} frame {i}", vg.state, VIDEO_MASKMEM, VIDEO_PTRS)
+        n_alive.append(len(out["obj_ids"]))
+        # live slots whose ring has taken more writes than it holds
+        evicted = max(evicted, int((vg.state.alive & (vg.state.maskmem_age[:, 1:] >= 0).all(dim=1)
+                                    & (vg.state.hotstart >= VIDEO_MASKMEM)).sum()))
+        if (set(out) != {"obj_ids", "scores", "masks_lowres"} or not np.isfinite(out["scores"]).all()
+                or out["masks_lowres"].shape[1:] != (cfg.mask_loss_resolution,) * 2):
+            raise AssertionError(f"{tag} frame {i}: bad output {[np.shape(v) for v in out.values()]}")
+    peak = torch.cuda.max_memory_allocated()
+    st = vg.state
+    if int(st.frame_idx) != VIDEO_FRAMES or max(n_alive) != VIDEO_SLOTS or not evicted:
+        raise AssertionError(f"{tag}: frame_idx {int(st.frame_idx)}, live objects {n_alive}, "
+                             f"at most {evicted} slots past a ring eviction")
+    med = statistics.median(secs[1:])
+    prof = profile_step(lambda: vg.step(frames[0], prompt))
+    split = video_stage_seconds(vg, frames[1], prompt)
+
+    # the memory attention of one propagated frame, alone (CUDA events)
+    feats, poss = proc._state["feats"], proc._state["poss"]
+    core = vg.core
+    with torch.inference_mode():
+        mem, mpos, mmask, n_ptr, _ = memory_bank(core, st, VIDEO_MASKMEM, VIDEO_PTRS)
+        visk, posk = (t.expand((VIDEO_SLOTS,) + t.shape[1:]) for t in (feats[-1], poss[-1]))
+        mem_attn_ms = median_ms(lambda: core.condition_features(
+            visk, posk, mem, mpos, mem_mask=mmask, num_obj_ptr_tokens=n_ptr), reps=3)
+        prop_ms = median_ms(lambda: vg._propagate(st, feats[-1], poss[-1], feats[0], feats[1]),
+                            reps=3)
+    del mem, mpos, mmask
+    print(f"{tag}: {VIDEO_FRAMES} frames at 1200x900, {VIDEO_SLOTS} slots, {VIDEO_MASKMEM} memory "
+          f"frames, {VIDEO_PTRS} pointers, live objects a frame {n_alive}, at most {evicted} live "
+          f"slots past a ring eviction in a frame; host s a frame, median after the first {med:.4f} "
+          f"{fmt_s(secs)}; profile (one frame, torch.profiler): {prof['device_ms']:.3f} device ms "
+          f"in a {prof['window_ms']:.3f} ms window, busy share {prof['busy_share']:.4f}; "
+          f"propagate {prop_ms:.3f} ms, of which the memory attention {mem_attn_ms:.3f} ms "
+          f"(CUDA events, median of 3; {mem_attn_ms / prof['device_ms']:.4f} of the frame's "
+          f"device ms); peak memory {peak / 2**30:.3f} GiB | {smi}", flush=True)
+    print(f"{tag}: host s of one frame's stages, each ended by a sync: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" | {smi}", flush=True)
+
+    # the stages against the CPU, on the last frame's state and features
+    live = torch.nonzero(st.alive).flatten()[:VIDEO_CPU_SLOTS]
+    res = tracker_against_cpu(core, st, feats, poss, live)
+    print(f"{tag}: the card's tracker stages (bf16) against their fp32 CPU run on slots "
+          f"{live.tolist()}: max |card - cpu| / max |cpu| " + ", ".join(
+              f"{k} {v:.5f}" for k, v in res.items() if isinstance(v, float))
+          + f"; best-mask index flips {res['index_flips']}; ages equal {res['ages_equal']} "
+          f"(limit {SMALL_TOL})", flush=True)
+    bad = [k for k, v in res.items() if isinstance(v, float) and v > SMALL_TOL]
+    flips = [m for _, m in res["index_flips"] if m > SMALL_TOL]
+    if bad or flips or not res["ages_equal"]:
+        raise AssertionError(f"{tag}: tracker stages off the CPU's: {res}")
+    dets = proc.set_text_prompt(prompt, threshold=-1.0)
+    dm = torch.from_numpy(dets["masks_lowres"].astype(np.float32)).to(proc.device)
+    ds = torch.from_numpy(dets["scores"].astype(np.float32)).to(proc.device)
+    keep = nms_ops.nms_masks(dm, ds, vg.nms_iou)
+    eq, rounds = video_ops_against_cpu(dm, ds, keep, st)
+    print(f"{tag}: association ({dm.shape[0]} detections x {VIDEO_SLOTS} tracks at "
+          f"{cfg.mask_loss_resolution}^2, the auction: {rounds} rounds, 8 a host sync) and the "
+          f"batched connected components on the card against the CPU, bit for bit: {eq}",
+          flush=True)
+    if not all(eq.values()):
+        raise AssertionError(f"{tag}: card and CPU differ: {eq}")
+    del vg, core, st, dm, ds, keep
+    torch.cuda.empty_cache()
+
+    # Sam3TrackerPredictor: a click on frame 0, a box for a second object,
+    # then propagation over every frame
+    tp = Sam3TrackerPredictor(proc, num_maskmem=VIDEO_MASKMEM, max_obj_ptrs=VIDEO_PTRS)
+    tp.init_state(frames)
+    _, m0 = tp.add_new_points_or_box(0, obj_id=1, points=np.array([[600.0, 450.0]]),
+                                     labels=np.array([1]))
+    _, m1 = tp.add_new_points_or_box(0, obj_id=2, box=np.array([100.0, 100.0, 500.0, 400.0]))
+    reset_counts()
+    outs, t_track = host_seconds(lambda: list(tp.propagate_in_video()))
+    check_launches(f"{tag} tracker predictor", counts(),
+                   {k: (VIDEO_FRAMES - 1) * v for k, v in set_image_launches(cfg).items()})
+    tr = tp._state.track
+    ring = tr.maskmem_age[:2, 1:].cpu().numpy()
+    if (len(outs) != VIDEO_FRAMES or any(sorted(o[1].tolist()) != [1, 2] for o in outs)
+            or not all(np.isfinite(o[2]).all() for o in outs)
+            or not (np.isfinite(m0).all() and np.isfinite(m1).all())
+            or (tr.maskmem_age[:2, 0] < 0).any() or not (ring >= 0).all()):
+        raise AssertionError(f"{tag}: tracker predictor outputs {[o[1].tolist() for o in outs]}, "
+                             f"ring ages {ring.tolist()}")
+    print(f"{tag}: Sam3TrackerPredictor, a click and a box on frame 0, then propagate_in_video "
+          f"over {len(outs)} frames in {t_track:.4f} s (K1/K2 once a new frame), finite, cond and "
+          f"ring memory written (ring ages {ring.tolist()})", flush=True)
+    del tp
+    torch.cuda.empty_cache()
+
+    # Sam3VideoPredictor: two sessions interleaved, then the first alone
+    vp = Sam3VideoPredictor(proc, propagate_memory=True, num_slots=VIDEO_SLOTS,
+                            prob_threshold=0.0, num_maskmem=VIDEO_MASKMEM, max_obj_ptrs=VIDEO_PTRS)
+    n = 3
+    a, b = vp.start_session(frames[:n]), vp.start_session(frames[n:2 * n])
+    vp.add_prompt(a, prompt)
+    vp.add_prompt(b, "wall")
+    inter = [(oa, ob) for oa, ob in zip(vp.propagate_in_video(a), vp.propagate_in_video(b))]
+    vp.add_prompt(a, prompt)
+    alone = list(vp.propagate_in_video(a))
+    same = all(np.array_equal(x["obj_ids"], y["obj_ids"])
+               and np.array_equal(x["masks_lowres"], y["masks_lowres"])
+               for (x, _), y in zip(inter, alone))
+    finite = all(np.isfinite(o["scores"]).all() for pair in inter for o in pair)
+    print(f"{tag}: Sam3VideoPredictor, 2 sessions of {n} frames interleaved: finite {finite}, "
+          f"the first session's outputs equal to its run alone {same}", flush=True)
+    if not (same and finite and [o["frame_idx"] for o, _ in inter] == list(range(n))):
+        raise AssertionError(f"{tag}: interleaved sessions differ from the session alone")
+    vp.close()
+    del vp, proc
+    torch.cuda.empty_cache()
+
+
 def phase_int8_bwd(g: torch.Generator):
     """One full-width training step at the bench configuration with
     ``base_quant="int8_bwd"`` (dx also an int8 product)."""
@@ -1791,6 +2116,9 @@ def main():
     phase_validate(g)
     phase_interactive(g)
     phase_model_options(g)
+    # its own generator: the later phases draw what they drew before it, and
+    # the phase alone draws what it draws here
+    phase_video(torch.Generator(device="cuda").manual_seed(SEED), smi)
     phase_int8_bwd(g)
     phase_small_reference()
     phase_small_reference("small-int8", int8=True)

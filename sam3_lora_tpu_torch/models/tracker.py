@@ -203,15 +203,17 @@ class TrackerCore(nn.Module):
     """One tracker step: memory-conditioned features -> SAM heads (batch =
     objects). The memory ``mem_feats`` (B, M, mem_dim) holds num_maskmem x
     Hm x Wm frame tokens, then the object-pointer slots (each pointer split
-    into d_model / mem_dim tokens); ``mem_mask`` marks the unused slots."""
+    into d_model / mem_dim tokens); ``mem_mask`` marks the unused slots.
+    ``num_maskmem`` memory frames have a temporal PE each; ``max_obj_ptrs``
+    bounds the pointers' temporal PE."""
 
-    NUM_MASKMEM, MAX_OBJ_PTRS = 7, 16  # memory frames; pointers in the temporal PE
-
-    def __init__(self, spec: Spec, d_model: int, mem_dim: int, feat_sizes: Tuple[int, int]):
+    def __init__(self, spec: Spec, d_model: int, mem_dim: int, feat_sizes: Tuple[int, int],
+                 num_maskmem: int = 7, max_obj_ptrs: int = 16):
         super().__init__()
         cfg = spec.model
         self.spec = spec
         self.d_model, self.mem_dim = d_model, mem_dim
+        self.num_maskmem, self.max_obj_ptrs = num_maskmem, max_obj_ptrs
         self.transformer = nn.ModuleDict({"encoder": MemoryAttention(spec, d_model, mem_dim,
                                                                      feat_sizes)})
         self.maskmem_backbone = SimpleMaskEncoder(spec, out_dim=mem_dim, in_dim=d_model)
@@ -219,7 +221,7 @@ class TrackerCore(nn.Module):
                                                 image_embedding_size=feat_sizes,
                                                 input_image_size=(cfg.img_size, cfg.img_size))
         self.sam_mask_decoder = MaskDecoder(spec, transformer_dim=d_model)
-        self.maskmem_tpos_enc = spec.empty(self.NUM_MASKMEM, 1, 1, mem_dim, dtype=torch.float32)
+        self.maskmem_tpos_enc = spec.empty(num_maskmem, 1, 1, mem_dim, dtype=torch.float32)
         self.no_mem_embed = spec.empty(1, 1, d_model, dtype=torch.float32)
         self.no_mem_pos_enc = spec.empty(1, 1, d_model, dtype=torch.float32)
         self.no_obj_ptr = spec.empty(1, d_model, dtype=torch.float32)
@@ -293,7 +295,7 @@ class TrackerCore(nn.Module):
         mem_pos, mem_mask True = pad, num_obj_ptr_tokens)."""
         b, n, c, hm, wm = maskmem_feats.shape
         l = hm * wm
-        nm = self.NUM_MASKMEM
+        nm = self.num_maskmem
         tpos_emb = self.maskmem_tpos_enc[(nm - 1 - maskmem_tpos).clamp(0, nm - 1)]
         feats = maskmem_feats.reshape(b, n, c, l).transpose(2, 3)
         pos = maskmem_pos.reshape(b, n, c, l).transpose(2, 3) + tpos_emb.reshape(b, n, 1, c)
@@ -301,7 +303,7 @@ class TrackerCore(nn.Module):
         mem_mask = (~maskmem_valid).repeat_interleave(l, dim=1)
         p = obj_ptrs.shape[1]
         r = self.d_model // self.mem_dim
-        max_abs = min(num_frames, self.MAX_OBJ_PTRS) if num_frames else self.MAX_OBJ_PTRS
+        max_abs = min(num_frames, self.max_obj_ptrs) if num_frames else self.max_obj_ptrs
         ptr_pos = self.obj_ptr_tpos(obj_ptr_rel, max_abs).repeat_interleave(r, dim=1)
         ptr_tok = obj_ptrs.reshape(b, p * r, self.mem_dim)
         ptr_mask = (~obj_ptr_valid).repeat_interleave(r, dim=1)

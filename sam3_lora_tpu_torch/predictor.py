@@ -35,12 +35,13 @@ PREDICT_UNUSED = ("transformer.", "maskmem_backbone.", "obj_ptr_proj.", "obj_ptr
                   "mask_downsample.", "sam_prompt_encoder.mask_downscaling.")
 
 
-def tracker_core(cfg, device) -> TrackerCore:
-    """The predictor's ``TrackerCore`` for ``cfg`` on ``device`` (empty
-    parameters): its heads at d_model over the stride-14 grid."""
+def tracker_core(cfg, device, num_maskmem: int = 7, max_obj_ptrs: int = 16) -> TrackerCore:
+    """The ``TrackerCore`` for ``cfg`` on ``device`` (empty parameters): its
+    heads at d_model over the stride-14 grid, memory at d_model / 4."""
     fh = cfg.img_size // cfg.patch_size
     return TrackerCore(Spec(model=cfg, lora=None, device=device), d_model=cfg.d_model,
-                       mem_dim=max(cfg.d_model // 4, 8), feat_sizes=(fh, fh))
+                       mem_dim=max(cfg.d_model // 4, 8), feat_sizes=(fh, fh),
+                       num_maskmem=num_maskmem, max_obj_ptrs=max_obj_ptrs)
 
 
 class SAM3InteractiveImagePredictor:

@@ -57,12 +57,14 @@ def test_load_yaml_config_equals_jax(tmp_path):
     assert model_config_from_yaml({"dtype": "float32"}) == tc.ModelConfig(dtype="float32")
 
 
-@pytest.mark.parametrize("entry", ["trainer", "inference", "processor", "predictor"])
+@pytest.mark.parametrize("entry", ["trainer", "inference", "processor", "predictor",
+                                   "video_grounder", "video_predictor", "tracker_predictor"])
 def test_entry_points_default_to_the_card(entry):
     """With no device, ``Trainer``, ``SAM3LoRAInference``, ``Sam3Processor``
-    and ``SAM3InteractiveImagePredictor`` (on a default processor) build on
-    CUDA: on a host without a card that raises (nothing falls back to the
-    CPU)."""
+    and, on a default processor, ``SAM3InteractiveImagePredictor``,
+    ``VideoGrounder``, ``Sam3VideoPredictor`` and ``Sam3TrackerPredictor``
+    build on CUDA: on a host without a card that raises (nothing falls back
+    to the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default is then simply usable")
     if entry == "trainer":
@@ -74,19 +76,26 @@ def test_entry_points_default_to_the_card(entry):
     else:
         from sam3_lora_tpu_torch.predictor import SAM3InteractiveImagePredictor
         from sam3_lora_tpu_torch.processor import Sam3Processor
+        from sam3_lora_tpu_torch.tracking_predictor import Sam3TrackerPredictor
+        from sam3_lora_tpu_torch.video import VideoGrounder
+        from sam3_lora_tpu_torch.video_predictor import Sam3VideoPredictor
+
+        outer = {"predictor": SAM3InteractiveImagePredictor, "video_grounder": VideoGrounder,
+                 "video_predictor": Sam3VideoPredictor,
+                 "tracker_predictor": Sam3TrackerPredictor}[entry]
 
         def cls(cfg):
-            return SAM3InteractiveImagePredictor(Sam3Processor(cfg))
+            return outer(Sam3Processor(cfg))
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
         cls(tc.tiny_model_config())
 
 
-@pytest.mark.parametrize("cli", ["train", "infer", "validate", "compare"])
+@pytest.mark.parametrize("cli", ["train", "infer", "validate", "compare", "video"])
 def test_clis_default_to_the_card(cli, tmp_path):
     """``--device`` defaults to cuda in every CLI (parsed, not run)."""
     import argparse
 
-    from sam3_lora_tpu_torch.cli import compare, infer, train, validate
+    from sam3_lora_tpu_torch.cli import compare, infer, train, validate, video
 
     seen = {}
     orig = argparse.ArgumentParser.parse_args
@@ -98,8 +107,10 @@ def test_clis_default_to_the_card(cli, tmp_path):
 
     argv = ["--config", "x.yaml"] + {
         "train": [], "infer": ["--image", "x.png"], "validate": ["--val_data_dir", "v"],
-        "compare": ["--weights", "w.npz", "--val_data_dir", "v"]}[cli]
-    mod = {"train": train, "infer": infer, "validate": validate, "compare": compare}[cli]
+        "compare": ["--weights", "w.npz", "--val_data_dir", "v"],
+        "video": ["--video", "v.mp4", "--prompt", "crack"]}[cli]
+    mod = {"train": train, "infer": infer, "validate": validate, "compare": compare,
+           "video": video}[cli]
     mp = pytest.MonkeyPatch()
     mp.setattr(argparse.ArgumentParser, "parse_args", spy)
     try:

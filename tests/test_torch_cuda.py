@@ -26,7 +26,10 @@ backward. The serving path's mask IoU and NMS (``ops/masks.py``,
 ``ops/nms.py``, and chip_smoke's device loop) on the card, bit for bit the
 CPU's. The interactive predictor's SAM heads on the card against their fp32
 CPU run, and the decoder's dense boxRPB oracle against its separable route,
-at the full width (``chip_smoke.SMALL_TOL``)."""
+at the full width (``chip_smoke.SMALL_TOL``). The video tier: the auction
+and the batched connected components (and the hole filling) on the card,
+bit for bit the CPU's; the tracker's propagate and memory update at the
+full width against their fp32 CPU run (``chip_smoke.SMALL_TOL``)."""
 
 import numpy as np
 import pytest
@@ -818,3 +821,81 @@ def test_dense_rpb_oracle_matches_separable_route_at_full_width(gen):
 
     worst, finite = chip_smoke.decoder_options(ModelConfig(dtype="bfloat16"), "cuda", gen)
     assert worst <= chip_smoke.SMALL_TOL and finite, (worst, finite)
+
+
+def _assignment_problems(b: int = 16, t: int = 16, q: int = 200):
+    """1 - mask IoU problems as the association builds them: tracks as
+    rows, ``q`` detections as columns, some of them copies (IoU ties)."""
+    from sam3_lora_tpu_torch.ops.masks import mask_iou
+
+    masks, _ = _nms_candidates(q, 96)
+    rng = np.random.RandomState(2)
+    cost = []
+    for _ in range(b):
+        trk = masks[torch.from_numpy(rng.randint(0, q, t))]
+        cost.append(1.0 - mask_iou(trk, masks))
+    return torch.stack(cost), torch.from_numpy(rng.rand(b, t) > 0.2)
+
+
+def test_auction_on_the_card_equals_the_cpu(gen):
+    """The auction over 16 problems of 16 tracks x 200 detections on the
+    card, bit for bit the CPU's (the same fp32 bids and the same first
+    index among ties); and at the cap (a price war that never settles)."""
+    from sam3_lora_tpu_torch.train.matcher import auction
+
+    cost, valid = _assignment_problems()
+    assert torch.equal(auction(cost.cuda(), valid.cuda()).cpu(), auction(cost, valid))
+    war = torch.tensor([[[0.1, 0.2], [0.3, 0.1], [0.2, 0.2]]])
+    for cap in (1023, 1024):
+        assert torch.equal(auction(war.cuda(), max_iters=cap).cpu(), auction(war, max_iters=cap))
+
+
+def test_batched_components_on_the_card_equal_the_cpu(gen):
+    """connected_components, component sizes and the hole filling over 16
+    masks at 288² on the card, bit for bit the CPU's (integer labels;
+    the filled logits are the inputs or +-0.1)."""
+    from sam3_lora_tpu_torch.ops.cc import component_sizes, connected_components
+    from sam3_lora_tpu_torch.video import fill_holes_in_mask_scores
+
+    logits = torch.randn(16, 288, 288, generator=gen, device="cuda")
+    logits = torch.nn.functional.avg_pool2d(logits[:, None], 9, 1, 4)[:, 0]  # blobs
+    for m in (logits > 0, logits <= 0):
+        lab = connected_components(m)
+        assert torch.equal(lab.cpu(), connected_components(m.cpu()))
+        assert torch.equal(component_sizes(lab).cpu(), component_sizes(lab.cpu()))
+    assert torch.equal(fill_holes_in_mask_scores(logits, 16).cpu(),
+                       fill_holes_in_mask_scores(logits.cpu(), 16))
+
+
+def test_tracker_stages_on_the_card_match_the_cpu(gen):
+    """make_tracker_fns' propagate and update_memory at the full width (d
+    256, memory 64 over the 72x72 grid, 7 memory frames, 16 pointers, high
+    resolution maps at 288 and 144), bf16 on the card against fp32 on the
+    CPU, on two slots of a seeded state (a full ring; cond and pointers
+    only): within chip_smoke.SMALL_TOL * max |cpu|, ages equal."""
+    from sam3_lora_tpu_torch.config import ModelConfig
+    from sam3_lora_tpu_torch.video import init_track_state, video_tracker_core
+
+    cfg = ModelConfig(dtype="bfloat16")
+    core = video_tracker_core(cfg, torch.device("cuda"), 7, 16)
+    d, f = cfg.d_model, cfg.feat_size
+    st = init_track_state(2, (288, 288), 7, 16, 64, d, (f, f), device="cuda")
+    st = st._replace(
+        alive=torch.ones(2, dtype=torch.bool, device="cuda"),
+        obj_ids=torch.tensor([0, 1], dtype=torch.int32, device="cuda"),
+        masks=torch.randn(2, 288, 288, generator=gen, device="cuda"),
+        maskmem=torch.randn(2, 7, 64, f, f, generator=gen, device="cuda"),
+        obj_ptrs=torch.randn(2, 16, d, generator=gen, device="cuda"),
+        maskmem_age=torch.tensor([[9, 0, 1, 2, 3, 4, 5], [2, -1, -1, -1, -1, -1, -1]],
+                                 dtype=torch.int32, device="cuda"),
+        obj_ptr_age=torch.tensor([list(range(16)), [0, 1] + [-1] * 14], dtype=torch.int32,
+                                 device="cuda"))
+    feats = [torch.randn(1, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+             for s in (4 * f, 2 * f, f)]
+    poss = [torch.randn(1, d, s, s, generator=gen, device="cuda").to(torch.bfloat16)
+            for s in (4 * f, 2 * f, f)]
+    res = chip_smoke.tracker_against_cpu(core, st, feats, poss,
+                                         torch.arange(2, device="cuda"))
+    worst = {k: v for k, v in res.items() if isinstance(v, float)}
+    assert all(v <= chip_smoke.SMALL_TOL for v in worst.values()), res
+    assert res["ages_equal"] and all(m <= chip_smoke.SMALL_TOL for _, m in res["index_flips"])

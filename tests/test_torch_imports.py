@@ -2,7 +2,8 @@
 package (``sam3_lora_tpu``), serving and training alike: the machine with
 the GPU has no use for them, and the port keeps its own copies of what it
 needs (config, tokenizer, datapoint transforms, the RLE codec and its C++
-source, the image evaluators, ``cli/prepare_data.py``, ``interactive.py``)."""
+source, the image evaluators, ``cli/prepare_data.py``, ``interactive.py``,
+``io_utils.py``, ``eval/video_eval.py``)."""
 
 import os
 import subprocess
@@ -33,6 +34,10 @@ CODE = (
     "import sam3_lora_tpu_torch.cli.prepare_data, sam3_lora_tpu_torch.interactive\n"
     "import sam3_lora_tpu_torch.models.sam_heads, sam3_lora_tpu_torch.models.tracker\n"
     "import sam3_lora_tpu_torch.predictor\n"
+    "import sam3_lora_tpu_torch.io_utils, sam3_lora_tpu_torch.ops.cc, sam3_lora_tpu_torch.ops.association\n"
+    "import sam3_lora_tpu_torch.video, sam3_lora_tpu_torch.video_predictor\n"
+    "import sam3_lora_tpu_torch.tracking_predictor, sam3_lora_tpu_torch.eval.video_eval\n"
+    "import sam3_lora_tpu_torch.cli.video\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"

@@ -110,3 +110,87 @@ def nested(flat):
             node = node.setdefault(part, {})
         node[leaf] = arr
     return out
+
+
+TINY_TARGETS = ("qkv", "fc1", "fc2", "linear1", "linear2")  # the processors' adapters
+
+
+def jax_tiny_processor():
+    """-> (the JAX package's ``Sam3Processor`` on the tiny config with
+    adapters on ``TINY_TARGETS`` and weights filled from numpy seed 0, its
+    parameter specs)."""
+    import jax.numpy as jnp
+    import pytest
+    from flax import traverse_util
+
+    from sam3_lora_tpu import processor as jax_processor
+    from sam3_lora_tpu.config import LoRAConfig, tiny_model_config
+    from sam3_lora_tpu.models import build_sam3_image_model
+    from sam3_lora_tpu.models.geometry import GeoPrompt
+    from sam3_lora_tpu.models.sam3_image import Batch
+
+    cfg = tiny_model_config()
+    lora = LoRAConfig(rank=4, alpha=8.0, target_modules=TINY_TARGETS)
+    r = cfg.img_size
+    batch = Batch(images=jnp.zeros((1, 3, r, r)),
+                  token_ids=jnp.zeros((1, cfg.text_context_length), jnp.int32),
+                  img_ids=jnp.zeros((1,), jnp.int32), geo=GeoPrompt.empty(1, cfg.max_prompt_boxes))
+    specs = param_specs(build_sam3_image_model(cfg, lora=lora), batch, train=False)
+    flat = fill_params(specs)
+    params = traverse_util.unflatten_dict({p: jnp.asarray(flat[".".join(p)]) for p, _ in specs})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_processor, "init_model", lambda model, key: params)
+        return jax_processor.Sam3Processor(cfg, lora), specs
+
+
+def port_tiny_processor(specs):
+    """The port's ``Sam3Processor`` on the CPU with ``jax_tiny_processor``'s
+    weights (``specs`` as it returned them)."""
+    from sam3_lora_tpu_torch import config as tc
+    from sam3_lora_tpu_torch.processor import Sam3Processor
+    from sam3_lora_tpu_torch.utils.checkpoint import load_jax_params
+
+    proc = Sam3Processor(tc.tiny_model_config(),
+                         tc.LoRAConfig(rank=4, alpha=8.0, target_modules=TINY_TARGETS), device="cpu")
+    load_jax_params(proc.model, fill_params(specs))
+    return proc
+
+
+def jax_video_tracker(proc, num_maskmem: int, max_obj_ptrs: int, seed: int = 1):
+    """-> (a JAX ``TrackerCore`` param tree for the video tier, as the JAX
+    ``VideoGrounder``'s own init traces it, filled from numpy ``seed``; its
+    specs)."""
+    import jax.numpy as jnp
+    from flax import traverse_util
+
+    from sam3_lora_tpu import video as jvideo
+    from sam3_lora_tpu.models.layers import Spec
+    from sam3_lora_tpu.models.tracker import TrackerCore
+
+    cfg = proc.cfg
+    d, fh = cfg.d_model, cfg.img_size // cfg.patch_size
+    core = TrackerCore(Spec(model=cfg, lora=None), d_model=d, mem_dim=max(d // 4, 8),
+                       num_maskmem=num_maskmem, max_obj_ptrs=max_obj_ptrs, feat_sizes=(fh, fh))
+
+    class Grounder:  # what the init tracer reads of a grounder
+        feat_hw, mem_dim = (fh, fh), max(d // 4, 8)
+
+    Grounder.proc = proc
+    specs = param_specs(core, method=lambda m: jvideo._init_tracker_core(m, Grounder, d))
+    flat = fill_params(specs, seed)
+    return traverse_util.unflatten_dict({p: jnp.asarray(flat[".".join(p)]) for p, _ in specs}), specs
+
+
+def code_of(module) -> str:
+    """A module's syntax tree without its docstrings (a copy's code equals
+    the original's when these are equal)."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
