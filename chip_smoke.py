@@ -114,14 +114,41 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    Sam3VideoPredictor (two sessions interleaved, the first
                    again alone: equal outputs).
  15. int8_bwd    - one full-width training step with base_quant="int8_bwd".
- 16. small       - a small config whose path runs every attention kernel: its
+ 16. scale-out   - at the full config, bf16, batch 4, LoRA on qkv, fc1, fc2,
+                   linear1 and linear2, every dropout off: (a) Trainer.fit
+                   (one warm-up, two timed updates) in an NCCL group of 1
+                   (multihost.initialize from the environment, a free port)
+                   against the same updates without a group, the adapters
+                   bit for bit after every update, the launches the train
+                   phase's design; (b) two processes on the one card
+                   (``--scale-out-rank``, spawned after the build) in a gloo
+                   group over CUDA tensors, 2 of the same 4 images each, one
+                   update: the reduced gradients bit for bit those of the
+                   same halves in one process (the group's counts given to
+                   each), within GRAD_RTOL of (a)'s batch-4 gradients as one
+                   vector (GRAD_RTOL_SPLIT by adapter), the halves' matching
+                   the batch's, the adapters equal across the ranks,
+                   the logged loss the group's mean near (a)'s, files
+                   written by rank 0 alone, a failed or late rank fails the
+                   phase; (c) FrameParallelDetector at world size 1 over 8
+                   seeded 1200x900 frames, one prompt, chunks of 4: each
+                   chunk K1 x28, K2 x4, K3 x6 and nothing else, every frame
+                   within SMALL_TOL of _forward on it alone, host s a frame
+                   against the frame-by-frame loop; (d) save_base_checkpoint
+                   of a full-config model, loaded strictly into a fresh one
+                   (every parameter bit for bit), and an int8-tier engine
+                   built from the file against one quantized directly (one
+                   request bit for bit); (e) a trace_span among one profiled
+                   step's events, MemMeter's peak equal to
+                   max_memory_allocated.
+ 17. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
                    fp32 on the CPU; again with its ViT in the int8 tier; at
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
- 17. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+ 18. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
                    window_cost, dma_floor, packed) at bench.py's batch 8
                    through their rows(): every stage rung (K1's own kernel
                    at each stage), op rate, work-per-CTA sweep and the
@@ -228,6 +255,15 @@ GRAD_RTOL = 1e-1
 # GEMMs, forward and back; that doubles the gradients' bound (measured on an
 # H100 (700 W): 5.7e-2 median, 1.12e-1 worst, where the bf16 config gave 5.5e-2)
 GRAD_RTOL_INT8 = 2e-1
+# scale-out (b): the mean gradient of two halves of a batch (2 + 2 images in
+# bf16 on the card, each half's loss over the group's counts) against the
+# whole batch of 4's, adapter by adapter. The halves run every GEMM and
+# kernel at other shapes, so every bf16 rounding moves; the same batch in
+# another image order (same shapes) sits within 5.5e-4. Measured on an H100
+# (700 W): 1.20e-1 at the decoder's layer-1 linear1 lora_b, 2.5e-2 median;
+# all adapters as one vector are held to GRAD_RTOL, and the ranks to the
+# same halves computed in one process bit for bit
+GRAD_RTOL_SPLIT = 2e-1
 # K5 and K6 against their plain versions: max |kernel - plain| <= GEMM_RTOL *
 # max |plain|, one bf16 ulp of the largest output (the plain versions sum the
 # bf16 products in another order); K4 must equal its plain version bit for bit
@@ -1900,6 +1936,420 @@ def phase_int8_bwd(g: torch.Generator):
         raise AssertionError("int8_bwd: no int8 GEMM ran")
 
 
+# the scale-out phase: batch 4 with every dropout off (the ranks of (b) draw
+# their own masks, which (a) would not), one warm-up and two timed updates
+SCALE_BATCH, SCALE_STEPS = 4, 3
+SCALE_RANKS = 2
+SCALE_RANK_TIMEOUT_S = 420
+SCALE_FRAMES, SCALE_CHUNK = 8, 4
+
+
+def scale_out_config() -> ModelConfig:
+    return model_config(False).replace(enc_dropout=0.0, dec_dropout=0.0, vit_drop_path_rate=0.0)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fit_recording(cfg: ModelConfig, loader, out_dir: str):
+    """Trainer.fit over ``loader`` at ``cfg`` with LORA, live adapters drawn
+    from a generator seeded SEED and the scorer's dropout off. -> (trainer,
+    adapters after each update, the first update's gradients after the
+    group's reduction and before the clip, fit's result)."""
+    from sam3_lora_tpu_torch.train import trainer as trainer_mod
+
+    tcfg = TrainConfig(batch_size=loader.bs, num_epochs=1, warmup_steps=0, logging_steps=1,
+                       num_workers=2, seed=SEED, output_dir=out_dir)
+    trainer = Trainer(cfg, LORA, tcfg, device="cuda")
+    trainer.setup(steps_per_epoch=len(loader))
+    live_adapters(trainer.model, torch.Generator(device="cuda").manual_seed(SEED))
+    trainer.model.dot_prod_scoring.prompt_mlp.drop.rate = 0.0
+    snaps, grads = [], {}
+    step, update = trainer.train_step, trainer_mod.apply_update
+
+    def recording_step(batch):
+        losses = step(batch)
+        snaps.append([p.detach().clone() for p in trainer.trainable])
+        return losses
+
+    def capturing_update(opt, params, lr, max_norm):
+        if not grads:
+            grads.update({n: p.grad.float().cpu() for n, p in zip(trainer.trainable_names, params)})
+        return update(opt, params, lr, max_norm)
+
+    trainer.train_step = recording_step
+    trainer_mod.apply_update = capturing_update
+    try:
+        result = trainer.fit(loader)
+    finally:
+        trainer_mod.apply_update = update
+    torch.cuda.synchronize()
+    return trainer, snaps, grads, result
+
+
+def read_stats(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "train_stats.json")) as f:
+        return [json.loads(line) for line in f]
+
+
+def snapshot_diff(names, a, b) -> list:
+    """(update, adapter, max |a - b|) of every adapter whose bits differ."""
+    return [(i, n, (x.float() - y.float()).abs().max().item())
+            for i, (sa, sb) in enumerate(zip(a, b)) for n, x, y in zip(names, sa, sb)
+            if not torch.equal(x, y)]
+
+
+def scale_out_rank(base: str) -> None:
+    """One rank of scale-out (b), run by the phase as ``chip_smoke.py
+    --scale-out-rank <dir>`` with the group's environment: gloo over CUDA
+    tensors on the one card, TRAIN_BATCH / SCALE_RANKS of the first update's
+    images, one update; its reduced gradients, adapters after the update and
+    the files its trainer wrote go to ``<dir>/rank<r>.pt``."""
+    from sam3_lora_tpu_torch.parallel import multihost
+
+    if not multihost.initialize(backend="gloo"):
+        raise SystemExit("scale-out rank: no process group in the environment")
+    rank = multihost.process_index()
+    try:
+        cfg = scale_out_config()
+        loader = DataLoader(SyntheticSamples(cfg, SCALE_BATCH, SEED), SCALE_BATCH // SCALE_RANKS,
+                            shuffle=False, num_workers=2, host_shard=multihost.host_shard())
+        out_dir = os.path.join(base, f"out{rank}")
+        trainer, snaps, grads, result = fit_recording(cfg, loader, out_dir)
+        written = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                         for d, _, files in os.walk(out_dir) for f in files)
+        torch.save({"grads": grads, "adapters": [t.cpu() for t in snaps[-1]],
+                    "names": trainer.trainable_names, "steps": result["steps"],
+                    "written": written,
+                    "peak": torch.cuda.max_memory_allocated()}, os.path.join(base, f"rank{rank}.pt"))
+    finally:
+        multihost.shutdown()
+    print(f"scale-out rank {rank}: done", flush=True)
+
+
+def run_ranks(base: str) -> list:
+    """SCALE_RANKS processes of ``scale_out_rank`` on the one card; raises if
+    any fails or outlasts SCALE_RANK_TIMEOUT_S."""
+    import sys
+
+    port = free_port()
+    procs = []
+    for r in range(SCALE_RANKS):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(SCALE_RANKS), "RANK": str(r), "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--scale-out-rank", base], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs, failed = [], []
+    try:
+        deadline = time.perf_counter() + SCALE_RANK_TIMEOUT_S
+        for r, p in enumerate(procs):
+            try:
+                outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} timed out after {SCALE_RANK_TIMEOUT_S} s")
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            failed.append(f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    if failed:
+        raise AssertionError("scale-out (b): " + "\n".join(failed))
+    return [torch.load(os.path.join(base, f"rank{r}.pt")) for r in range(SCALE_RANKS)]
+
+
+def split_reference(cfg: ModelConfig, loader) -> dict:
+    """(b) in one process: the first batch of ``loader`` split by image into
+    the ranks' halves (``parallel.shard_batch``), each half's loss over the
+    two halves' summed counts (``train/losses.py::_group_sum`` given them in
+    place of the collective), the mean of the halves' adapter gradients;
+    whether the halves' matching equals the whole batch's, and their scores'
+    largest distance from the whole batch's (every layer, in probability).
+    -> {"grads": {name: fp32 cpu}, "matching_equal": bool, "scores": float}."""
+    from sam3_lora_tpu_torch.parallel import make_mesh, shard_batch
+    from sam3_lora_tpu_torch.train import losses as losses_mod
+
+    tcfg = TrainConfig(batch_size=loader.bs, num_epochs=1, seed=SEED,
+                       output_dir=tempfile.mkdtemp())
+    trainer = Trainer(cfg, LORA, tcfg, device="cuda")
+    trainer.setup(steps_per_epoch=len(loader))
+    live_adapters(trainer.model, torch.Generator(device="cuda").manual_seed(SEED))
+    model = trainer.model
+    model.dot_prod_scoring.prompt_mlp.drop.rate = 0.0
+    model.train()
+    batch = batch_to_device(next(iter(loader.epoch(0))), "cuda")
+    halves = [shard_batch(batch, make_mesh(ranks=range(SCALE_RANKS)), rank=r)
+              for r in range(SCALE_RANKS)]
+    local, orig = [], losses_mod._group_sum
+    try:
+        with torch.no_grad():
+            whole = model(batch)
+            losses_mod._group_sum = lambda v: (local.append(v), (v, 1))[1]
+            parts = []
+            for h in halves:
+                out = model(h)
+                parts.append((out["indices"], out["pred_logits"]))
+                compute_losses(out, h.targets)
+        matching_equal = torch.equal(torch.cat([i for i, _ in parts], dim=1), whole["indices"])
+        scores_diff = (torch.sigmoid(torch.cat([s for _, s in parts], dim=1).float())
+                       - torch.sigmoid(whole["pred_logits"].float())).abs().max().item()
+        del whole, parts
+        total = sum(local[1:], local[0])
+        losses_mod._group_sum = lambda v: (total, SCALE_RANKS)
+        model.zero_grad(set_to_none=True)
+        for h in halves:
+            compute_losses(model(h), h.targets)["core_loss"].backward()
+    finally:
+        losses_mod._group_sum = orig
+    grads = {n: (p.grad / SCALE_RANKS).float().cpu()
+             for n, p in zip(trainer.trainable_names, trainer.trainable)}
+    del trainer, model, batch, halves
+    torch.cuda.empty_cache()
+    return {"grads": grads, "matching_equal": matching_equal, "scores": scores_diff}
+
+
+def scale_out_frames(cfg: ModelConfig, g: torch.Generator):
+    """(c): FrameParallelDetector at world size 1 over SCALE_FRAMES seeded
+    1200x900 frames, one prompt, chunk SCALE_CHUNK, against ``_forward`` on
+    each frame alone. -> (launches, max errors, host s a frame: detector,
+    the loop)."""
+    from sam3_lora_tpu_torch.parallel import FrameParallelDetector
+
+    engine = SAM3LoRAInference(cfg, LORA, seed=SEED, device="cuda")
+    live_adapters(engine.model, g)
+    frames = [engine.preprocess(f)[0][0] for f in video_frames(SCALE_FRAMES)]
+    ids = np.asarray(engine.tokenizer(PROMPTS[0], context_length=cfg.text_context_length),
+                     np.int64)[0]
+    det = FrameParallelDetector(SAM3LoRAInference._forward, engine, chunk_size=SCALE_CHUNK)
+    list(det.detect_video(frames[:SCALE_CHUNK], ids))  # warm-up: the batch-4 shapes
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, det_s = host_seconds(lambda: list(det.detect_video(frames, ids)))
+    launches = counts()
+
+    def alone():
+        return [[t.cpu().numpy() for t in engine._forward(
+            torch.from_numpy(f[None]).cuda(), torch.from_numpy(ids[None]).cuda())] for f in frames]
+
+    ref, loop_s = host_seconds(alone)
+    names = ("scores", "presence", "boxes", "masks")
+    errs = {n: max(float(np.abs(o[i] - r[i][0]).max()) for o, r in zip(outs, ref))
+            for i, n in enumerate(names)}
+    if len(outs) != SCALE_FRAMES:
+        raise AssertionError(f"scale-out (c): {len(outs)} frames out of {SCALE_FRAMES}")
+    del engine, det
+    torch.cuda.empty_cache()
+    return launches, errs, det_s / SCALE_FRAMES, loop_s / SCALE_FRAMES
+
+
+def scale_out_checkpoint(base: str) -> dict:
+    """(d): save_base_checkpoint of a full-config model, loaded strictly into
+    a fresh model (every parameter bit for bit); an int8-tier engine built
+    from the file against one quantized from the same weights directly, one
+    request's raw outputs bit for bit."""
+    from sam3_lora_tpu_torch.utils.checkpoint import load_base_checkpoint, save_base_checkpoint
+
+    cfg = model_config(False)
+    path = os.path.join(base, "base.npz")
+    src = SAM3LoRAInference(cfg, None, seed=SEED + 1, device="cuda")
+    t0 = time.perf_counter()
+    n = save_base_checkpoint(src.model, path)
+    save_s = time.perf_counter() - t0
+    fresh = build_sam3_image_model(cfg, device="cuda")
+    init_model(fresh, torch.Generator(device="cuda").manual_seed(SEED))
+    t0 = time.perf_counter()
+    load_base_checkpoint(fresh, path, strict=True)
+    load_s = time.perf_counter() - t0
+    want = dict(src.model.named_parameters())
+    differ = [k for k, p in fresh.named_parameters() if not torch.equal(p, want[k])]
+    del src, fresh, want
+    torch.cuda.empty_cache()
+
+    cfg8 = model_config(True)
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    outs = []
+    for kw in (dict(base_checkpoint=path), dict(seed=SEED + 1)):
+        engine = SAM3LoRAInference(cfg8, None, device="cuda", **kw)
+        img, _ = engine.preprocess(image)
+        ids = engine.tokenizer(PROMPTS[-1], context_length=cfg8.text_context_length)
+        outs.append([t.cpu() for t in engine._forward(
+            torch.from_numpy(img).cuda(), torch.from_numpy(np.asarray(ids, np.int64)).cuda())])
+        del engine
+        torch.cuda.empty_cache()
+    int8_equal = all(torch.equal(a, b) for a, b in zip(*outs))
+    size = os.path.getsize(path)
+    os.remove(path)
+    return {"arrays": n, "bytes": size, "save_s": save_s, "load_s": load_s, "differ": differ,
+            "int8_equal": int8_equal}
+
+
+def phase_scale_out(g: torch.Generator, smi: str):
+    """Data-parallel training, the frame-parallel detector, the base
+    checkpoint and the logging utilities at the full config (module
+    docstring, phase 16). Returns (a)'s launches with a group."""
+    from sam3_lora_tpu_torch.parallel import multihost
+    from sam3_lora_tpu_torch.utils import MemMeter, trace_span
+
+    cfg = scale_out_config()
+    failed = []
+    with tempfile.TemporaryDirectory() as base:
+        # (a) world size 1 under NCCL, in this process, against no group
+        loader = DataLoader(SyntheticSamples(cfg, SCALE_BATCH * SCALE_STEPS, SEED), SCALE_BATCH,
+                            shuffle=False, num_workers=2)
+        plain, plain_snaps, plain_grads, _ = fit_recording(cfg, loader, os.path.join(base, "plain"))
+        plain_stats = read_stats(os.path.join(base, "plain"))
+        names = plain.trainable_names
+        first = batch_to_device(next(iter(loader.epoch(0))), "cuda")
+        # (e) a trace_span among one profiled step's events; MemMeter's peak
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with trace_span("scale_out.train_step"):
+                Trainer.train_step(plain, first)
+            torch.cuda.synchronize()
+        span = [e for e in prof.key_averages() if e.key == "scale_out.train_step"]
+        mem = MemMeter()
+        mem.update()
+        mem_equal = mem.peak == torch.cuda.max_memory_allocated()
+        print(f"scale-out (e): trace_span 'scale_out.train_step' in the profiled step's events "
+              f"{bool(span)} ({span[0].count if span else 0}x, {span[0].cpu_time_total / 1e3:.3f} "
+              f"host ms)" if span else "scale-out (e): trace_span missing from the profile",
+              flush=True)
+        print(f"scale-out (e): MemMeter peak {mem.peak} B, torch.cuda.max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated()} B, equal {mem_equal}", flush=True)
+        if not span:
+            failed.append("(e) trace_span not among the profiler's events")
+        if not mem_equal:
+            failed.append("(e) MemMeter's peak differs from max_memory_allocated")
+        del plain, first
+        torch.cuda.empty_cache()
+
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                          RANK="0", LOCAL_RANK="0")
+        try:
+            if not multihost.initialize() or torch.distributed.get_backend() != "nccl":
+                raise AssertionError("scale-out (a): no NCCL group of 1")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            group, group_snaps, _, result = fit_recording(cfg, loader, os.path.join(base, "group"))
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            multihost.shutdown()
+            for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+                os.environ.pop(var)
+        group_stats = read_stats(os.path.join(base, "group"))
+        del group
+        torch.cuda.empty_cache()
+        diff = snapshot_diff(names, plain_snaps, group_snaps)
+        print(f"scale-out (a): NCCL group of 1 against no group, {SCALE_STEPS} updates of batch "
+              f"{SCALE_BATCH}: step time (s) {[r['step_time_s'] for r in group_stats]} vs "
+              f"{[r['step_time_s'] for r in plain_stats]} (first is the warm-up); losses "
+              f"{[r['loss'] for r in group_stats]} vs {[r['loss'] for r in plain_stats]}; peak "
+              f"{peak / 2**30:.3f} GiB; adapters bit for bit after every update: {not diff}; "
+              f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
+        if diff:
+            worst = max(diff, key=lambda d: d[2])
+            failed.append(f"(a) {len(diff)} adapter snapshots differ from the run without a "
+                          f"group (first: update {diff[0][0]} {diff[0][1]}; worst: update "
+                          f"{worst[0]} {worst[1]} by {worst[2]:.3e})")
+        if [r["loss"] for r in group_stats] != [r["loss"] for r in plain_stats]:
+            failed.append("(a) logged losses differ from the run without a group")
+        want = {k: v * SCALE_STEPS for k, v in train_step_launches(cfg).items()}
+        try:
+            check_launches("scale-out (a)", launches, want)
+        except AssertionError as e:
+            failed.append(str(e))
+        del plain_snaps, group_snaps
+
+        # (b) two gloo ranks on the one card, each with half of the first batch
+        split = split_reference(cfg, loader)
+        t0 = time.perf_counter()
+        ranks = run_ranks(base)
+        wall = time.perf_counter() - t0
+        rank_stats = read_stats(os.path.join(base, "out0"))
+        errs = {n: ((ranks[0]["grads"][n] - plain_grads[n]).norm() / plain_grads[n].norm()).item()
+                for n in names}
+        worst = max(errs, key=errs.get)
+        flat = [torch.cat([g[n].flatten() for n in names]) for g in (ranks[0]["grads"], plain_grads)]
+        whole_err = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+        exact = all(torch.equal(ranks[0]["grads"][n], split["grads"][n]) for n in names)
+        same = all(torch.equal(a, b) for a, b in zip(ranks[0]["adapters"], ranks[1]["adapters"]))
+        loss_err = abs(rank_stats[0]["loss"] - plain_stats[0]["loss"]) / abs(plain_stats[0]["loss"])
+        print(f"scale-out (b): {SCALE_RANKS} gloo ranks on one card in {wall:.1f} s, "
+              f"{SCALE_BATCH // SCALE_RANKS} images each: reduced adapter gradients bit for bit "
+              f"those of the same halves in this process {exact}; the halves' matching equal to "
+              f"batch {SCALE_BATCH}'s {split['matching_equal']}, their scores within "
+              f"{split['scores']:.3e}; against (a)'s batch {SCALE_BATCH} gradients: all adapters "
+              f"as one rel err {whole_err:.3e} (bound {GRAD_RTOL}), by adapter max "
+              f"{errs[worst]:.3e} ({worst}; bound {GRAD_RTOL_SPLIT}), median "
+              f"{statistics.median(errs.values()):.3e}; adapters equal across ranks {same}; logged "
+              f"loss (group mean) {rank_stats[0]['loss']:.5f} vs {plain_stats[0]['loss']:.5f} (rel "
+              f"{loss_err:.3e}, bound {LOSS_RTOL}); rank 0 wrote {ranks[0]['written']}, rank 1 "
+              f"{ranks[1]['written']}; peak {[round(r['peak'] / 2**30, 3) for r in ranks]} GiB",
+              flush=True)
+        if not exact:
+            bad = max(names, key=lambda n: (ranks[0]["grads"][n] - split["grads"][n]).abs().max())
+            failed.append(f"(b) the ranks' reduced gradients differ from the same halves' in one "
+                          f"process (worst {bad})")
+        if not split["matching_equal"]:
+            failed.append("(b) the halves' matching differs from the batch's")
+        if not (whole_err <= GRAD_RTOL and errs[worst] <= GRAD_RTOL_SPLIT):
+            failed.append(f"(b) reduced gradients off: {whole_err:.3e} as one, "
+                          f"{errs[worst]:.3e} at {worst}")
+        if not same:
+            failed.append("(b) the ranks' adapters differ")
+        if not loss_err <= LOSS_RTOL:
+            failed.append(f"(b) the logged loss is off by {loss_err:.3e}")
+        if ranks[1]["written"] or "train_stats.json" not in ranks[0]["written"]:
+            failed.append("(b) a rank other than 0 wrote files, or rank 0 wrote no stats")
+        if any(r["steps"] != 1 for r in ranks):
+            failed.append(f"(b) steps {[r['steps'] for r in ranks]}")
+
+        # (c) the frame-parallel detector at world size 1
+        frame_launches, frame_errs, det_s, loop_s = scale_out_frames(model_config(False), g)
+        n_global = len(cfg.vit_global_blocks)
+        n_chunks = SCALE_FRAMES // SCALE_CHUNK
+        frame_want = {"window_attention_rope_packed": (cfg.vit_depth - n_global) * n_chunks,
+                      "long_attention_rope_packed": n_global * n_chunks,
+                      "long_attention_packed": cfg.enc_layers * n_chunks}
+        print(f"scale-out (c): FrameParallelDetector, {SCALE_FRAMES} frames of 1200x900 in "
+              f"chunks of {SCALE_CHUNK}: host s a frame {det_s:.4f} against {loop_s:.4f} for "
+              f"_forward frame by frame; max abs err against each frame alone {frame_errs} (bound "
+              f"{SMALL_TOL}); launches { {k: v for k, v in frame_launches.items() if v} }",
+              flush=True)
+        if not all(v <= SMALL_TOL for v in frame_errs.values()):
+            failed.append(f"(c) outputs off: {frame_errs}")
+        try:
+            check_launches("scale-out (c)", frame_launches, frame_want)
+        except AssertionError as e:
+            failed.append(str(e))
+
+        # (d) the base checkpoint at the full config
+        ck = scale_out_checkpoint(base)
+        print(f"scale-out (d): save_base_checkpoint wrote {ck['arrays']} arrays, "
+              f"{ck['bytes'] / 2**30:.3f} GiB, in {ck['save_s']:.2f} s; strict load "
+              f"{ck['load_s']:.2f} s, parameters differing {len(ck['differ'])}; int8 engine from "
+              f"the file bit for bit the one quantized directly: {ck['int8_equal']}", flush=True)
+        if ck["differ"]:
+            failed.append(f"(d) {len(ck['differ'])} parameters differ after the round trip "
+                          f"(first {ck['differ'][:3]})")
+        if not ck["int8_equal"]:
+            failed.append("(d) the int8 engine built from the file differs")
+    print(f"scale-out: {smi}", flush=True)
+    if failed:
+        raise AssertionError("scale-out: " + "; ".join(failed))
+    return launches
+
+
 def small_models(int8: bool = False, **overrides):
     """A config small enough for the CPU, with the heads of the full model
     (ViT 2 x 64, encoder 4 x 32) so the kernels sit on the path: fp32 on the
@@ -2084,8 +2534,12 @@ def phase_probes(g: torch.Generator):
 
 
 def main():
+    import sys
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
+    if sys.argv[1:2] == ["--scale-out-rank"]:  # one rank of the scale-out phase's (b)
+        return scale_out_rank(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -2120,6 +2574,8 @@ def main():
     # the phase alone draws what it draws here
     phase_video(torch.Generator(device="cuda").manual_seed(SEED), smi)
     phase_int8_bwd(g)
+    # its own generator, as the video phase
+    phase_scale_out(torch.Generator(device="cuda").manual_seed(SEED), smi)
     phase_small_reference()
     phase_small_reference("small-int8", int8=True)
     phase_small_reference("small-bench", int8=True, **BENCH_SMALL)

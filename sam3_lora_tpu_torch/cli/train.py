@@ -5,6 +5,11 @@
 ``base_quant_min_dim``), ``lora:``, ``training:`` and ``output:``. PyYAML
 reads the config and PIL decodes the dataset's images; nothing else needs
 them.
+
+On N cards, one process each: ``python -m torch.distributed.run
+--nproc_per_node N -m sam3_lora_tpu_torch.cli.train --config x.yaml``. Each
+rank trains on its shard of every epoch (``training.batch_size`` is the
+batch of one rank) on its own card, and rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -12,24 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import logging
 import os
-import sys
-
-
-def setup_logging(output_dir: str) -> logging.Logger:
-    """Log to stdout and to ``<output_dir>/train.log``."""
-    logger = logging.getLogger("sam3_lora_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s", "%H:%M:%S")
-    os.makedirs(output_dir, exist_ok=True)
-    for handler in (logging.StreamHandler(sys.stdout),
-                    logging.FileHandler(os.path.join(output_dir, "train.log"))):
-        handler.setFormatter(fmt)
-        logger.addHandler(handler)
-    logger.propagate = False
-    return logger
 
 
 def model_config_from_yaml(msec: dict):
@@ -53,9 +41,23 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
+    from ..parallel import multihost
+
+    # join the process group before any device use (a no-op for one
+    # process); gloo when the ranks train on the CPU
+    multihost.initialize(backend="gloo" if args.device == "cpu" else None)
+    try:
+        return train(args)
+    finally:
+        multihost.shutdown()
+
+
+def train(args):
     from ..config import LoRAConfig, TrainConfig, load_yaml_config
+    from ..parallel import multihost
     from ..train.data import COCOSegmentDataset, DataLoader
     from ..train.trainer import Trainer
+    from ..utils.logging import setup_logging
 
     cfg = load_yaml_config(args.config)
     lcfg = LoRAConfig.from_dict(cfg.get("lora", {}))
@@ -64,13 +66,15 @@ def main(argv=None):
         tcfg = dataclasses.replace(tcfg, num_epochs=args.num_epochs)
     msec = cfg.get("model", {}) or {}
     mcfg = model_config_from_yaml(msec)
+    primary = multihost.is_primary()
 
-    log = setup_logging(tcfg.output_dir)
+    log = setup_logging(tcfg.output_dir if primary else None)  # one train.log, rank 0's
     log.info("config: %s", args.config)
     log.info("lora: rank=%d alpha=%s targets=%s", lcfg.rank, lcfg.alpha, lcfg.target_modules)
 
     trainer = Trainer(model_cfg=mcfg, lora_cfg=lcfg, train_cfg=tcfg,
-                      base_checkpoint=msec.get("base_checkpoint"), device=args.device)
+                      base_checkpoint=msec.get("base_checkpoint"),
+                      device=multihost.rank_device(args.device))
     train_ds = COCOSegmentDataset(
         tcfg.data_dir, "train", model_config=mcfg,
         per_category_queries=tcfg.per_category_queries,
@@ -83,12 +87,14 @@ def main(argv=None):
     except FileNotFoundError:
         log.warning("no valid split found; training without validation")
         val_loader = None
+    shard = multihost.host_shard() if multihost.process_count() > 1 else None
     train_loader = DataLoader(train_ds, tcfg.batch_size, num_workers=tcfg.num_workers,
-                              seed=tcfg.seed)
+                              seed=tcfg.seed, host_shard=shard)
     result = trainer.fit(train_loader, val_loader)
     log.info("done: best_val=%.4f steps=%d", result["best_val_loss"], result["steps"])
-    with open(os.path.join(tcfg.output_dir, "result.json"), "w") as f:
-        json.dump(result, f, indent=2)
+    if primary:
+        with open(os.path.join(tcfg.output_dir, "result.json"), "w") as f:
+            json.dump(result, f, indent=2)
     return result
 
 

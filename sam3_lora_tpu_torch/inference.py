@@ -107,12 +107,17 @@ class SAM3LoRAInference:
     @torch.inference_mode()
     def _forward(self, images: torch.Tensor, token_ids: torch.Tensor):
         """-> scores (B, Q), presence (B,), boxes (B, Q, 4) cxcywh in [0, 1],
-        mask probabilities (B, Q, m, m), all fp32."""
+        mask probabilities (B, Q, m, m), all fp32. One image: every prompt
+        on it; B images (a batch of frames): prompt i on image i. (The JAX
+        engine points every row at image 0, so its frame-parallel detector
+        would ground every frame of a chunk on the first.)"""
         b = token_ids.shape[0]
+        one_each = images.shape[0] == b
         batch = Batch(
             images=images,
             token_ids=token_ids,
-            img_ids=torch.zeros((b,), dtype=torch.long, device=self.device),
+            img_ids=(torch.arange if one_each else torch.zeros)(b, dtype=torch.long,
+                                                                 device=self.device),
             geo=GeoPrompt.empty(b, self.cfg.max_prompt_boxes, device=self.device),
         )
         return head_outputs(self.model(batch))

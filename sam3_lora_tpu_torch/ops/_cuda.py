@@ -18,6 +18,7 @@ runs at import: the CPU tests import every module on a host without
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -84,14 +85,20 @@ def build() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
-        _run([_popen([nvcc, *_NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC_DIR, name)])
-              for name, obj in zip(SOURCES, objs)])
-        so = os.path.join(tmp, "lib.so")
-        _run([_popen([nvcc, *_NVCC_FLAGS, "-shared", "-o", so, *objs])])
-        os.replace(so, lib)  # atomic: a concurrent reader sees all or nothing
+    # one process compiles (the ranks of a group start together); the others
+    # wait on the lock, then find the library
+    with open(os.path.join(out_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib):
+            return lib
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = [os.path.join(tmp, name + ".o") for name in SOURCES]
+            _run([_popen([nvcc, *_NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC_DIR, name)])
+                  for name, obj in zip(SOURCES, objs)])
+            so = os.path.join(tmp, "lib.so")
+            _run([_popen([nvcc, *_NVCC_FLAGS, "-shared", "-o", so, *objs])])
+            os.replace(so, lib)  # atomic: a concurrent reader sees all or nothing
     return lib
 
 

@@ -232,11 +232,14 @@ def collate(samples: Sequence[Sample], tokenizer=None, cfg: Optional[ModelConfig
 
 class DataLoader:
     """Batches of a dataset in a seeded order per epoch, decoded by a thread
-    pool a few batches ahead of the consumer."""
+    pool a few batches ahead of the consumer. With ``host_shard``
+    (``parallel.multihost.HostShard``) a rank takes its share of each
+    epoch's order, cut after the seeded shuffle, so the ranks draw disjoint
+    samples of one permutation."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  num_workers: int = 2, drop_last: bool = True, tokenizer=None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, host_shard=None):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -245,15 +248,21 @@ class DataLoader:
         self.drop_last = drop_last
         self.tok = tokenizer or get_default_tokenizer()
         self.prefetch = prefetch
+        self.host_shard = host_shard
 
     def __len__(self) -> int:
         n = len(self.ds)
+        if self.host_shard is not None:
+            n = len(self.host_shard.indices(n))
         return n // self.bs if self.drop_last else (n + self.bs - 1) // self.bs
 
     def order(self, epoch: int) -> np.ndarray:
+        """This rank's sample order of ``epoch``."""
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
+        if self.host_shard is not None:
+            order = order[self.host_shard.indices(len(order))]
         return order
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:

@@ -12,14 +12,25 @@ static-shape outputs of ``Sam3Image`` with targets:
 Every per-term value is returned under the JAX package's key (suffix
 ``_aux_{i}`` for aux layers, ``_o2m`` for the o2m branch) beside
 ``core_loss``.
+
+Under a process group. The JAX step sees the whole global batch, so each
+term's denominator counts the global batch: ``num_boxes``, the row count of
+the presence loss and the kept entries of ``loss_ce`` (and the F1 metric's
+counts). A rank here sees its own rows, so ``compute_losses`` sums those
+counts over the group (one ``all_reduce`` of a small vector a call) and
+divides each by the group's size N: a rank's loss is its rows' sum over
+1/N of the global denominator, the mean of the ranks' losses is the global
+batch's loss, and the mean of their gradients (``Trainer``'s all-reduce) is
+its gradient. Without a group the counts are the batch's own.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.sam3_image import Targets
@@ -42,16 +53,45 @@ class LossConfig:
     presence_alpha: float = 0.5
     presence_gamma: float = 0.0
     o2m_weight: float = 2.0
-    normalization: str = "local"  # local | none (global needs a process group)
+    # local | global | none. JAX's "global" is the pmean of the count over a
+    # mesh axis; here every count is the group's already, so "global" and
+    # "local" are the same normalization, with or without a group
+    normalization: str = "local"
     compute_aux: bool = True
 
 
-def _num_boxes(targets: Targets, cfg: LossConfig) -> torch.Tensor:
-    if cfg.normalization == "local":
-        return targets.valid.sum().float().clamp(min=1.0)
+def _group_sum(v: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``v`` summed over the process group (one ``all_reduce``), and the
+    group's size; ``(v, 1)`` without a group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return v, 1
+    v = v.clone()
+    dist.all_reduce(v)
+    return v, dist.get_world_size()
+
+
+def _num_boxes(valid_sum: torch.Tensor, n: int, cfg: LossConfig) -> torch.Tensor:
+    """The box-term denominator from the group's count of valid targets
+    (clamped to 1, as JAX clamps the global count) over the group's size."""
+    if cfg.normalization in ("local", "global"):
+        return valid_sum.clamp(min=1.0) / n
     if cfg.normalization == "none":
-        return torch.ones((), device=targets.valid.device)
-    raise NotImplementedError(f"loss normalization {cfg.normalization!r} is not ported")
+        return torch.ones((), device=valid_sum.device)
+    raise ValueError(f"unknown loss normalization {cfg.normalization!r}")
+
+
+@torch.no_grad()
+def _ce_counts(pred_logits, targets: Targets, idx, pair_valid) -> torch.Tensor:
+    """(4,) float: the entries ``iabce_loss`` keeps, and the F1 metric's
+    true positives, false positives and false negatives."""
+    q = pred_logits.shape[1]
+    onehot = F.one_hot(idx.clamp(0, q - 1), q).float() * pair_valid.float()[..., None]
+    target_classes = onehot.sum(tuple(range(1, idx.ndim))).clamp(0.0, 1.0)
+    keep_mask = ~((~targets.is_exhaustive)[:, None] & (target_classes < 0.5))
+    pred_pos = torch.sigmoid(pred_logits[..., 0].float()) > 0.5
+    pos = target_classes > 0.5
+    return torch.stack([keep_mask.sum(), (pred_pos & pos).sum(), (pred_pos & ~pos).sum(),
+                        (~pred_pos & pos).sum()]).float()
 
 
 def _gather_q(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -88,9 +128,12 @@ def iabce_loss(
     pair_valid,           # same shape as idx
     num_boxes,
     cfg: LossConfig,
+    counts: torch.Tensor,  # (4,) _ce_counts summed over the group
+    rows: torch.Tensor,    # the presence loss's row count over the group's size
+    n: int,                # the group's size
     presence_logits: Optional[torch.Tensor] = None,  # (B, 1)
 ):
-    b, q = pred_logits.shape[:2]
+    q = pred_logits.shape[1]
     s = pred_logits[..., 0].float()
     prob = torch.sigmoid(s)
 
@@ -119,19 +162,15 @@ def iabce_loss(
         loss_bce = loss_bce * keep
         pl = sigmoid_focal_loss(presence_logits.float(), keep,
                                 alpha=cfg.presence_alpha, gamma=cfg.presence_gamma)
-        presence_loss = pl.mean(-1).sum() / b
+        presence_loss = pl.mean(-1).sum() / rows
 
     # weak negatives: no negative supervision for non-exhaustive queries
     keep_mask = ~((~targets.is_exhaustive)[:, None] & (target_classes < 0.5))
     loss_bce = loss_bce * keep_mask.float()
-    loss_ce = loss_bce.sum() / (keep_mask.sum() + 1e-6)
+    loss_ce = loss_bce.sum() / ((counts[0] + 1e-6) / n)
 
-    with torch.no_grad():  # binary F1, a metric
-        pred_pos = prob > 0.5
-        tp = (pred_pos & (target_classes > 0.5)).sum()
-        fp = (pred_pos & (target_classes <= 0.5)).sum()
-        fn = (~pred_pos & (target_classes > 0.5)).sum()
-        f1 = (2 * tp / (2 * tp + fp + fn).clamp(min=1)).float()
+    tp, fp, fn = counts[1], counts[2], counts[3]  # binary F1 over the group, a metric
+    f1 = 2 * tp / (2 * tp + fp + fn).clamp(min=1)
     return {"loss_ce": loss_ce, "presence_loss": presence_loss, "ce_f1": f1}
 
 
@@ -167,25 +206,41 @@ def compute_losses(
     out: Dict[str, Any], targets: Targets, cfg: LossConfig = LossConfig()
 ) -> Dict[str, torch.Tensor]:
     """The full training loss over the main, aux and o2m outputs of
-    ``Sam3Image`` with targets: ``core_loss`` plus every per-term value."""
-    num_boxes = _num_boxes(targets, cfg)
+    ``Sam3Image`` with targets: ``core_loss`` plus every per-term value.
+    The batch-dependent counts are the group's (module docstring)."""
     layers = out["pred_logits"].shape[0]
     has_o2m = "pred_logits_o2m" in out
+    main_layers = [li for li in range(layers) if li == layers - 1 or cfg.compute_aux]
+
+    def pairs(li):  # (logits, xyxy, idx, pair_valid) of the o2o and the o2m branch
+        idx = out["indices"][li]
+        yield "", out["pred_logits"][li], idx, (idx >= 0) & targets.valid
+        if has_o2m:
+            yield ("_o2m", out["pred_logits_o2m"][li], out["o2m_indices"][li],
+                   out["o2m_valid"][li] & targets.valid[..., None])
+
+    # every count a denominator needs, summed over the group at once
+    with torch.no_grad():
+        local = [targets.valid.sum().float().reshape(1),
+                 torch.full((1,), float(targets.valid.shape[0]), device=targets.valid.device)]
+        local += [_ce_counts(logits, targets, idx, pv)
+                  for li in main_layers for _, logits, idx, pv in pairs(li)]
+        sums, n = _group_sum(torch.cat(local))
+    num_boxes = _num_boxes(sums[0], n, cfg)
+    rows = sums[1] / n
+    site_counts = iter(sums[2:].reshape(-1, 4))
+
     losses: Dict[str, torch.Tensor] = {}
     core = torch.zeros((), device=num_boxes.device)
-
-    for li in range(layers):
+    for li in main_layers:
         is_main = li == layers - 1
         suffix = "" if is_main else f"_aux_{li}"
-        if not is_main and not cfg.compute_aux:
-            continue
-        idx = out["indices"][li]
-        pv = (idx >= 0) & targets.valid
+        (_, _, idx, pv), *o2m = pairs(li)
         presence = out["presence_logit_dec"][li] if out.get("presence_logit_dec") is not None else None
         lb = boxes_loss(out["pred_boxes"][li], out["pred_boxes_xyxy"][li], targets, idx, pv,
                         num_boxes)
         lc = iabce_loss(out["pred_logits"][li], out["pred_boxes_xyxy"][li], targets, idx, pv,
-                        num_boxes, cfg, presence_logits=presence)
+                        num_boxes, cfg, next(site_counts), rows, n, presence_logits=presence)
         term = (cfg.weight_bbox * lb["loss_bbox"] + cfg.weight_giou * lb["loss_giou"]
                 + cfg.weight_ce * lc["loss_ce"] + cfg.weight_presence * lc["presence_loss"])
         if is_main and "pred_masks_matched" in out:
@@ -195,13 +250,12 @@ def compute_losses(
         core = core + term
         losses.update({f"{k}{suffix}": v for k, v in {**lb, **lc}.items()})
 
-        if has_o2m:
-            o2m_idx = out["o2m_indices"][li]
-            o2m_pv = out["o2m_valid"][li] & targets.valid[..., None]
+        if o2m:
+            (_, _, o2m_idx, o2m_pv), = o2m
             lb2 = boxes_loss(out["pred_boxes_o2m"][li], out["pred_boxes_xyxy_o2m"][li],
                              targets, o2m_idx, o2m_pv, num_boxes)
             lc2 = iabce_loss(out["pred_logits_o2m"][li], out["pred_boxes_xyxy_o2m"][li],
-                             targets, o2m_idx, o2m_pv, num_boxes, cfg)
+                             targets, o2m_idx, o2m_pv, num_boxes, cfg, next(site_counts), rows, n)
             term2 = (cfg.weight_bbox * lb2["loss_bbox"] + cfg.weight_giou * lb2["loss_giou"]
                      + cfg.weight_ce * lc2["loss_ce"])
             if is_main and "pred_masks_o2m_matched" in out:

@@ -13,7 +13,14 @@ clip_grad_norm_`` would use max/(norm + 1e-6)), and update ``i`` (from 0)
 takes the schedule's value at ``i``, so under warmup the first update has
 lr = 0. AdamW's decoupled decay is the same in torch and optax.
 
-TensorBoard and multi-host training are not ported.
+Data-parallel training runs one process per card under
+``torch.distributed`` (``parallel/multihost.py``; ``cli/train.py`` under
+``torch.distributed.run``). Each rank steps its own shard of the batch; the
+losses take the group's denominators (``train/losses.py``), so the mean of
+the ranks' adapter gradients, one all-reduce an update, is the gradient of
+the whole batch's loss, as in JAX's global-view step. The adapters start
+from rank 0's, every rank's dropout draws its own masks, the logged losses
+and the validation loss are group means, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from ..config import LoRAConfig, ModelConfig, TrainConfig
 from ..models import Batch, build_sam3_image_model, init_model
 from ..models.lora import save_lora_weights, trainable_parameters
 from ..ops.quant import prequantize_model
+from ..parallel import dist_utils, multihost
+from ..utils.logging import MemMeter, TensorBoardLogger
 from .losses import LossConfig, compute_losses
 from .prefetch import batch_to_device, map_tensors, prefetch_to_device
 
@@ -183,6 +192,7 @@ class Trainer:
         named = trainable_parameters(self.model)
         self.trainable = [p for _, p in named]
         self.trainable_names = [n for n, _ in named]
+        dist_utils.broadcast_(self.trainable)  # every rank starts from rank 0's adapters
         total = sum(p.numel() for p in self.model.parameters())
         n_train = sum(p.numel() for p in self.trainable)
         stats = {"total_parameters": total, "trainable_parameters": n_train,
@@ -195,16 +205,28 @@ class Trainer:
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """One optimizer update on a batch already on the device; returns the
         loss terms on the device."""
-        # dropout masks from (seed, update): a resumed run draws the same ones
-        self.model.seed_dropout((self.tcfg.seed * 1_000_003 + self.step) % 2**62)
+        # dropout masks from (seed, update, rank): a resumed run draws the same
+        # ones, and each rank its own for its own images (rank 0 those of a
+        # run without a group)
+        rank = multihost.process_index()
+        self.model.seed_dropout((self.tcfg.seed * 1_000_003 + self.step
+                                 + rank * 7_919_000_003) % 2**62)
         losses = train_step(self.model, batch, self.loss_cfg,
                             self.tcfg.gradient_accumulation_steps)
+        # The group's mean gradient: one all-reduce of one flat bucket once
+        # the backward of every microbatch is done, as JAX reduces once an
+        # update. Not DistributedDataParallel: its reducer hooks fire per
+        # parameter inside a backward that replays remat regions
+        # (ops/remat.py, SaveFirst), and accumulation would need no_sync.
+        dist_utils.all_reduce_mean_([p.grad for p in self.trainable if p.grad is not None])
         apply_update(self.optimizer, self.trainable, self.sched(self.step),
                      self.tcfg.max_grad_norm)
         self.step += 1
         return losses
 
     def _write_stats(self, name: str, record: Dict[str, Any]) -> None:
+        if not multihost.is_primary():  # one writer under a group
+            return
         with open(os.path.join(self.tcfg.output_dir, f"{name}.json"), "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -223,8 +245,12 @@ class Trainer:
         start_epoch = 0
         t_start = time.time()
         cuda = self.device.type == "cuda"
+        tb = TensorBoardLogger(os.path.join(self.tcfg.output_dir, "tb")) if multihost.is_primary() \
+            else None
+        mem = MemMeter(self.device)
 
         state_path = os.path.join(self.tcfg.output_dir, "train_state.npz")
+        dist_utils.barrier()  # no rank looks for the state before every rank is here
         if os.path.exists(state_path):  # auto-resume
             meta = self.load_state()
             start_epoch = meta.get("epoch", -1) + 1
@@ -244,7 +270,11 @@ class Trainer:
                         torch.cuda.synchronize(self.device)
                     t_done = time.time()
                     names = list(losses)
-                    values = torch.stack([losses[k].float() for k in names]).cpu().tolist()
+                    stacked = torch.stack([losses[k].float() for k in names])
+                    # the group's mean (one all-reduce), so every rank sees the
+                    # same numbers and a NaN stops every rank at once
+                    dist_utils.all_reduce_mean_([stacked])
+                    values = stacked.cpu().tolist()
                     loss_np = dict(zip(names, values))  # one device-to-host copy
                     loss = loss_np["core_loss"]
                     if not np.isfinite(loss):
@@ -259,10 +289,12 @@ class Trainer:
                         # host clock of this update, ending in a device sync
                         "step_time_s": round(t_done - t_step, 4),
                         "elapsed_s": round(time.time() - t_start, 1),
-                        "mem_peak_gb": round(torch.cuda.max_memory_allocated(self.device) / 1e9, 3)
-                        if cuda else 0.0,
+                        "mem_peak_gb": round(mem.peak_gb, 3),
                         **{f"loss/{k}": round(v, 5) for k, v in loss_np.items() if k != "core_loss"},
                     })
+                    if tb is not None:
+                        tb.log_dict(loss_np, self.step, prefix="loss/")
+                        tb.log("lr", lr, self.step)
                 t_iter = time.time()
 
             train_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
@@ -274,19 +306,24 @@ class Trainer:
                 history["val_loss"].append(val_loss)
                 self._write_stats("val_stats", {"epoch": epoch, "val_loss": val_loss,
                                                 "train_loss": train_loss})
+                if tb is not None:
+                    tb.log("val_loss", val_loss, self.step)
                 if val_loss < best_val:
                     best_val = val_loss
                     self.save_adapters("best_lora.npz")
             self.save_adapters("last_lora.npz")
             self.save_state(epoch=epoch, best_val=best_val)
 
+        if tb is not None:
+            tb.close()
         return {"history": history, "best_val_loss": best_val, "steps": self.step,
                 "wall_s": time.time() - t_start}
 
     @torch.no_grad()
     def evaluate(self, val_loader) -> float:
         """Mean ``core_loss`` over the loader, dropout off; the matching and
-        the matched masks run, since the batches carry targets."""
+        the matched masks run, since the batches carry targets. Under a
+        group, the group's mean (every rank must take as many batches)."""
         self.model.eval()
         losses = []
         for batch in val_loader.epoch(0):
@@ -295,12 +332,17 @@ class Trainer:
             losses.append(compute_losses(out, batch.targets, self.loss_cfg)["core_loss"])
         if not losses:
             return float("nan")
-        return float(torch.stack(losses).mean().cpu())
+        mean = torch.stack(losses).mean()
+        dist_utils.all_reduce_mean_([mean])
+        return float(mean.cpu())
 
     def save_adapters(self, filename: str) -> str:
         """Adapter-only ``.npz`` in the JAX package's names, layout and
-        channel order (JAX ``load_lora_weights`` reads it)."""
+        channel order (JAX ``load_lora_weights`` reads it). Rank 0 alone
+        writes."""
         path = os.path.join(self.tcfg.output_dir, filename)
+        if not multihost.is_primary():
+            return path
         tmp = path + ".tmp.npz"  # np.savez appends .npz to other suffixes
         save_lora_weights(self.model, tmp)
         os.replace(tmp, path)
@@ -309,8 +351,10 @@ class Trainer:
     def save_state(self, filename: str = "train_state.npz", **meta) -> str:
         """Resumable state: the adapters and AdamW's moments and counts by
         parameter name, the update count and ``meta``. The frozen base is not
-        saved; it reloads from its checkpoint."""
+        saved; it reloads from its checkpoint. Rank 0 alone writes."""
         path = os.path.join(self.tcfg.output_dir, filename)
+        if not multihost.is_primary():
+            return path
         payload = {}
         for name, p in zip(self.trainable_names, self.trainable):
             payload[f"lora::{name}"] = p.detach().cpu().numpy()

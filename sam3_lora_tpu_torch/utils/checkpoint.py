@@ -36,6 +36,13 @@ qkv projection (which the JAX module applies at every call) into the q/k
 output channels of ``weight``, ``bias``, ``lora_b`` and ``weight_scale``,
 once, at load. An int8 tensor replaces its parameter (the layer then runs
 the prequantized int8 route); a float one is copied in the parameter's dtype.
+
+``save_base_checkpoint`` goes the other way: the model's base parameters in
+the JAX names, layout, channel order and (scanned) grouping, a flat ``.npz``
+that JAX's ``load_base_checkpoint`` loads strictly. It writes bf16 leaves
+widened to fp32 (exact): numpy keeps bf16 only as 2-byte void, which JAX's
+loader cannot cast, while both loaders take the fp32 values into a bf16
+parameter bit for bit.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.layers import LoRALinear
+from ..models.layers import Conv2d, LoRALinear
 
 _SCAN = re.compile(r"^(?:(.*)\.)?scan_blocks_(\d+)\.block\.(.*)$")
 
@@ -202,6 +209,61 @@ def load_jax_params(model: nn.Module, flat: Dict[str, np.ndarray], strict: bool 
     """Load JAX flat params (an init, a base checkpoint or both with
     adapters) into the port's model; returns the number of tensors loaded."""
     return load_tensors(model, params_from_jax(flat), strict=strict)
+
+
+def jax_axes(module: nn.Module, leaf: str, ndim: int) -> tuple:
+    """The torch axis of each axis of the JAX layout of parameter ``leaf``
+    of ``module`` (the inverse of ``params_from_jax``'s transposes): a
+    linear ``kernel`` (in, out) is ``weight`` (out, in), a conv ``kernel``
+    (kh, kw, in, out) is (out, in, kh, kw), ``in_proj_weight``, ``lora_a``
+    and ``lora_b`` are transposed, the rest keep their layout."""
+    if leaf in ("in_proj_weight", "lora_a", "lora_b") or (
+            leaf == "weight" and isinstance(module, LoRALinear)):
+        return (1, 0)
+    if leaf == "weight" and isinstance(module, Conv2d):
+        return (2, 3, 1, 0)
+    return tuple(range(ndim))
+
+
+def base_params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """Every base parameter (not the adapters, not the int8 tier's
+    ``weight_scale``) as flat JAX-named numpy arrays: ``weight`` back to
+    ``kernel`` where the bridge renamed it, the transposes undone, the qkv
+    permutation unfolded, the scanned ViT groups stacked when the config
+    scans them, bf16 widened to fp32. A prequantized (int8) weight raises:
+    save the float base, and quantize after loading."""
+    out = {}
+    for mod_name, module in model.named_modules():
+        unperm = None
+        if isinstance(module, LoRALinear) and module.out_perm is not None:
+            unperm = torch.empty_like(module.out_perm)
+            unperm[module.out_perm] = torch.arange(len(module.out_perm))
+        for leaf, p in module.named_parameters(recurse=False):
+            if leaf in ("lora_a", "lora_b", "weight_scale"):
+                continue
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            if p.dtype == torch.int8:
+                raise ValueError(f"{name} is int8 (prequantized); save the model before "
+                                 "prequantize_model")
+            t = p.detach().cpu()
+            if unperm is not None and leaf in ("weight", "bias"):
+                t = t[unperm]  # rows are the output channels
+            t = t.permute(jax_axes(module, leaf, t.ndim))
+            if leaf == "weight" and isinstance(module, (LoRALinear, Conv2d)):
+                name = name[: -len("weight")] + "kernel"
+            out[name] = np.ascontiguousarray(t.float().numpy() if t.dtype == torch.bfloat16
+                                             else t.numpy())
+    cfg = model.spec.model
+    return stack_scanned(out, cfg) if cfg.vit_scan_blocks else out
+
+
+def save_base_checkpoint(model: nn.Module, path: str) -> int:
+    """Write the model's base parameters as the JAX package's flat base
+    checkpoint ``.npz`` (``base_params_to_jax``); returns the number of
+    arrays written."""
+    out = base_params_to_jax(model)
+    np.savez(path, **out)
+    return len(out)
 
 
 def load_base_checkpoint(model: nn.Module, path: str, strict: bool = True) -> int:

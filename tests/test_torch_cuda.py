@@ -29,7 +29,12 @@ CPU run, and the decoder's dense boxRPB oracle against its separable route,
 at the full width (``chip_smoke.SMALL_TOL``). The video tier: the auction
 and the batched connected components (and the hole filling) on the card,
 bit for bit the CPU's; the tracker's propagate and memory update at the
-full width against their fp32 CPU run (``chip_smoke.SMALL_TOL``)."""
+full width against their fp32 CPU run (``chip_smoke.SMALL_TOL``). Scale-out:
+two gloo ranks on the one card (the trainer's bucketed mean and broadcast,
+the frame-parallel all-gather on CUDA tensors), and the frame-parallel
+detector at one rank against each frame alone."""
+
+import os
 
 import numpy as np
 import pytest
@@ -899,3 +904,57 @@ def test_tracker_stages_on_the_card_match_the_cpu(gen):
     worst = {k: v for k, v in res.items() if isinstance(v, float)}
     assert all(v <= chip_smoke.SMALL_TOL for v in worst.values()), res
     assert res["ages_equal"] and all(m <= chip_smoke.SMALL_TOL for _, m in res["index_flips"])
+
+
+def test_gloo_collectives_over_cuda_tensors(gen, tmp_path):
+    """Two ranks on the one card under gloo: the trainer's bucketed mean and
+    broadcast, and the frame-parallel all-gather, on CUDA tensors
+    (``tests/torch_dist_worker.py cuda``)."""
+    import socket
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_dist_worker.py"), str(tmp_path), "cuda"],
+        env={**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": "0", "PYTHONPATH": root},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"WORKER_OK rank={r}" in out, out
+
+
+def test_frame_parallel_detector_on_the_card(gen):
+    """World size 1: a chunk of 4 frames as one batch through _forward on
+    the card (side-stream copies from pinned memory; the small bf16 config
+    of chip_smoke, whose attention runs the kernels) within
+    chip_smoke.SMALL_TOL of each frame alone."""
+    from sam3_lora_tpu_torch.config import LoRAConfig, tiny_model_config
+    from sam3_lora_tpu_torch.inference import SAM3LoRAInference
+    from sam3_lora_tpu_torch.parallel import FrameParallelDetector
+
+    cfg = tiny_model_config(flash_attention_min_seq=16, vit_dim=128, vit_heads=2, d_model=128,
+                            enc_heads=4, dtype="bfloat16")
+    eng = SAM3LoRAInference(cfg, LoRAConfig(target_modules=("qkv",)), device="cuda")
+    rng = np.random.RandomState(0)
+    frames = [eng.preprocess(rng.randint(0, 256, (40, 60, 3)).astype(np.uint8))[0][0]
+              for _ in range(6)]
+    ids = np.asarray(eng.tokenizer(["crack"], context_length=eng.cfg.text_context_length),
+                     np.int64)[0]
+    outs = list(FrameParallelDetector(SAM3LoRAInference._forward, eng, chunk_size=4)
+                .detect_video(frames, ids))
+    assert len(outs) == 6
+    for frame, out in zip(frames, outs):
+        alone = eng._forward(torch.from_numpy(frame[None]).cuda(), torch.from_numpy(ids[None]).cuda())
+        for got, want in zip(out, alone):
+            assert np.abs(got - want[0].cpu().numpy()).max() <= chip_smoke.SMALL_TOL

@@ -3,7 +3,8 @@ package (``sam3_lora_tpu``), serving and training alike: the machine with
 the GPU has no use for them, and the port keeps its own copies of what it
 needs (config, tokenizer, datapoint transforms, the RLE codec and its C++
 source, the image evaluators, ``cli/prepare_data.py``, ``interactive.py``,
-``io_utils.py``, ``eval/video_eval.py``)."""
+``io_utils.py``, ``eval/video_eval.py``, ``HostShard`` and
+``filesystem_gather``)."""
 
 import os
 import subprocess
@@ -38,6 +39,11 @@ CODE = (
     "import sam3_lora_tpu_torch.video, sam3_lora_tpu_torch.video_predictor\n"
     "import sam3_lora_tpu_torch.tracking_predictor, sam3_lora_tpu_torch.eval.video_eval\n"
     "import sam3_lora_tpu_torch.cli.video\n"
+    "import sam3_lora_tpu_torch.parallel, sam3_lora_tpu_torch.parallel.multihost\n"
+    "import sam3_lora_tpu_torch.parallel.mesh, sam3_lora_tpu_torch.parallel.dist_utils\n"
+    "import sam3_lora_tpu_torch.parallel.frame_parallel, sam3_lora_tpu_torch.utils.logging\n"
+    "from sam3_lora_tpu_torch.utils import setup_logging, TensorBoardLogger, MemMeter\n"
+    "from sam3_lora_tpu_torch.utils.checkpoint import save_base_checkpoint\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"
