@@ -92,12 +92,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    for 2 refinement steps, each stage K3 only, finite; the
                    median times of set_image, a click and a stage, and one
                    profiled click.
- 13. model options - a geo_mask_prompts model grounds a 1200x900 mask prompt
+ 13. agent       - the agent tier on the interactive phase's processor over
+                   the 1200x900 image: tool_agent_inference with a scripted
+                   LLM, at the threshold under the second phrase's 5 best
+                   scores (segment_phrase, the same phrase
+                   again, rejected, a second phrase, examine_each_mask with
+                   Accept and Reject verdicts, select_masks_and_return),
+                   set_image K1 x28 and K2 x4 once, each segment_phrase K3
+                   x6 alone; the selected masks at 900x1200 those of the
+                   processor's own set_text_prompt output at the picked
+                   indices, with their boxes and scores; then
+                   agent_inference with RuleBasedRefiner (4 rounds of
+                   refined phrases); host s per tool call.
+ 14. model options - a geo_mask_prompts model grounds a 1200x900 mask prompt
                    (K3 only, finite, 72^2 more prompt tokens); the decoder's
                    dense boxRPB oracle within SMALL_TOL of the separable
                    route on one set of full-width weights and inputs; a
                    box_rpb="none" decoder's outputs finite.
- 14. video       - VideoGrounder(propagate=True) on a bf16 Sam3Processor at
+ 15. video       - VideoGrounder(propagate=True) on a bf16 Sam3Processor at
                    the full config, 16 slots, 7 memory frames, 16 pointers,
                    over 12 seeded 1200x900 frames with one prompt and
                    prob_threshold 0: each frame K1 x28, K2 x4, K3 x6 and
@@ -112,9 +124,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    second object, propagate_in_video over the frames: K1/K2
                    once a frame, finite, memory written) and
                    Sam3VideoPredictor (two sessions interleaved, the first
-                   again alone: equal outputs).
- 15. int8_bwd    - one full-width training step with base_quant="int8_bwd".
- 16. scale-out   - at the full config, bf16, batch 4, LoRA on qkv, fc1, fc2,
+                   again alone: equal outputs); saco_veval of the grounder's
+                   tracks (prepare_video_predictions, one SacoVevalWriter
+                   shard, every evaluator) against ground truth of the
+                   tracks themselves (video mAP and phrase AP 1.0), less
+                   one, one moved: every meter equal to
+                   evaluate_saco_veval's on a copy of the records.
+ 16. video-train - one clip of 4 frames (make_synthetic_ytvis, 2 videos of
+                   12 frames; VideoGroundingDataset at random strides) at
+                   1008^2 through the full bf16 model in train mode as a
+                   batch: semantic_seg_loss and point_sampled_mask_loss
+                   (12544 points) on its outputs, one backward into the
+                   adapters; the forward K1 x28, K2 x4, K3 x6 and the step
+                   the train phase's design; each loss, the association
+                   losses (seeded logits, the clip's track ids, one
+                   duplicated) and the error-region sampler on the card
+                   against the CPU (VT_RTOL; the sampler equal); host s,
+                   peak memory, the losses' device ms.
+ 17. int8_bwd    - one full-width training step with base_quant="int8_bwd".
+ 18. scale-out   - at the full config, bf16, batch 4, LoRA on qkv, fc1, fc2,
                    linear1 and linear2, every dropout off: (a) Trainer.fit
                    (one warm-up, two timed updates) in an NCCL group of 1
                    (multihost.initialize from the environment, a free port)
@@ -141,14 +169,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    request bit for bit); (e) a trace_span among one profiled
                    step's events, MemMeter's peak equal to
                    max_memory_allocated.
- 17. small       - a small config whose path runs every attention kernel: its
+ 19. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
                    fp32 on the CPU; again with its ViT in the int8 tier; at
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
- 18. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+ 20. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
                    window_cost, dma_floor, packed) at bench.py's batch 8
                    through their rows(): every stage rung (K1's own kernel
                    at each stage), op rate, work-per-CTA sweep and the
@@ -175,6 +203,7 @@ Then one JSON line of the kernels, the nvidia-smi line, and the result line.
 from __future__ import annotations
 
 import collections
+import copy
 import functools
 import json
 import os
@@ -198,7 +227,7 @@ from sam3_lora_tpu_torch.measure import (
     profile_step,
     roofline,
 )
-from sam3_lora_tpu_torch.models import Batch, build_sam3_image_model, init_model
+from sam3_lora_tpu_torch.models import Batch, GeoPrompt, Targets, build_sam3_image_model, init_model
 from sam3_lora_tpu_torch.models.layers import LoRALinear
 from sam3_lora_tpu_torch.models.lora import trainable_parameters
 from sam3_lora_tpu_torch.ops.attention import dot_product_attention
@@ -239,6 +268,12 @@ from sam3_lora_tpu_torch.video import (
     video_tracker_core,
 )
 from sam3_lora_tpu_torch.video_predictor import Sam3VideoPredictor
+from sam3_lora_tpu_torch.agent import RuleBasedRefiner, agent_inference
+from sam3_lora_tpu_torch.agent_tools import ScriptedLLM, _upsample_masks, tool_agent_inference
+from sam3_lora_tpu_torch.eval import saco_veval
+from sam3_lora_tpu_torch.ops.cc import sample_point_from_error_region
+from sam3_lora_tpu_torch.train import video_losses
+from sam3_lora_tpu_torch.train.video_data import VideoGroundingDataset, make_synthetic_ytvis
 
 SEED = 0
 LSE_ATOL = 2e-3    # natural-log units; measured 6.4e-4 (K1, bf16-rounded rotated q, k)
@@ -1550,8 +1585,164 @@ def phase_interactive(g: torch.Generator):
           f"box prompts; profile (one click, torch.profiler): {prof['device_ms']:.3f} device ms "
           f"in a {prof['window_ms']:.3f} ms window, busy share {prof['busy_share']:.4f}",
           flush=True)
-    del pred, proc
-    torch.cuda.empty_cache()
+    del pred
+    return proc  # the agent phase drives it next
+
+
+AGENT_PHRASES = ("crack", "wall")  # the tool agent's two phrases
+AGENT_CONCEPT = "the crack"        # agent_inference's concept: refined to "crack", "cracks", "object"
+# the masks the second phrase keeps: at threshold 0 random weights keep all
+# 200 queries, and the copy's viz would spend the phase on the host drawing
+# 200 masks at 1200x900, each on its own and all as a set of marks
+AGENT_MASKS = 5
+
+
+def sync_of(device):
+    """A function that waits for ``device``'s queued work."""
+    return torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+
+
+class TimedLLM(ScriptedLLM):
+    """A ScriptedLLM that notes the host clock at each call."""
+
+    def __init__(self, turns):
+        super().__init__(turns)
+        self.times = []
+
+    def __call__(self, messages):
+        self.times.append(time.perf_counter())
+        return super().__call__(messages)
+
+
+def tool_turn(name: str, **params) -> str:
+    return f"<tool>{json.dumps({'name': name, 'parameters': params})}</tool>"
+
+
+def count_calls(proc, sync) -> list:
+    """Wrap ``proc.set_image`` and ``proc.set_text_prompt`` (instance
+    attributes; ``del`` them to unwrap): each call appends (method, its
+    first argument for a prompt, its launches, host s to a sync, its
+    detections for a prompt)."""
+    calls = []
+
+    def wrap(name):
+        plain = getattr(proc, name)
+
+        def counted(*a, **k):
+            reset_counts()
+            t0 = time.perf_counter()
+            out = plain(*a, **k)
+            sync()
+            calls.append((name, a[0] if name == "set_text_prompt" else None, counts(),
+                          time.perf_counter() - t0,
+                          out["num_detections"] if name == "set_text_prompt" else None))
+            return out
+
+        setattr(proc, name, counted)
+
+    wrap("set_image")
+    wrap("set_text_prompt")
+    return calls
+
+
+def agent_drive(proc, image: np.ndarray, device) -> dict:
+    """tool_agent_inference over ``proc`` with a scripted LLM, at the
+    threshold under the second phrase's AGENT_MASKS best scores:
+    segment_phrase, the same phrase again (rejected), a second phrase,
+    examine_each_mask (Accept the even masks, Reject the odd ones), then
+    select_masks_and_return of masks 2, 1 and 2 again and one past the end
+    (the first two survivors, masks 0 and 2 of the phrase). Then
+    agent.agent_inference with RuleBasedRefiner at threshold 1 (no
+    detection, so it refines for its 4 rounds). Returns each call's launches
+    and host s, the results and the processor's own output on the phrase."""
+    sync = sync_of(device)
+    h, w = image.shape[:2]
+    scores = proc.set_image(image).set_text_prompt(AGENT_PHRASES[1], threshold=-1.0)["scores"]
+    thr = float(np.sort(scores)[::-1][AGENT_MASKS])
+    want = proc.set_text_prompt(AGENT_PHRASES[1], threshold=thr)
+    n = want["num_detections"]
+    if n < 3:
+        raise AssertionError(f"agent: {n} masks at threshold {thr}, the script needs 3")
+    turns = [tool_turn("segment_phrase", text_prompt=AGENT_PHRASES[0]),
+             tool_turn("segment_phrase", text_prompt=AGENT_PHRASES[0]),
+             tool_turn("segment_phrase", text_prompt=AGENT_PHRASES[1]),
+             tool_turn("examine_each_mask")]
+    turns += [f"<verdict>{'Reject' if i % 2 else 'Accept'}</verdict>" for i in range(n)]
+    turns.append(tool_turn("select_masks_and_return", final_answer_masks=[2, 1, 2, n + 5]))
+    llm = TimedLLM(turns)
+    calls = count_calls(proc, sync)
+    try:
+        t0 = time.perf_counter()
+        res = tool_agent_inference(proc, image, "the cracks in the wall", llm,
+                                   max_generations=len(turns), threshold=thr)
+        t_end = time.perf_counter()
+        tool_calls = len(calls)
+        refined = agent_inference(proc, image, AGENT_CONCEPT, RuleBasedRefiner(), threshold=1.0)
+    finally:
+        del proc.set_image, proc.set_text_prompt
+    t = llm.times
+    examine_end = 4 + n  # the select call's index among the LLM calls
+    seconds = {"set_image": t[0] - t0, "segment_phrase": t[1] - t[0], "duplicate": t[2] - t[1],
+               "segment_phrase 2": t[3] - t[2], f"examine_each_mask ({n} masks)": t[examine_end] - t[3],
+               "select_masks_and_return": t_end - t[examine_end]}
+    picked = [0, 2]
+    return {"result": res, "calls": calls[:tool_calls], "refine_calls": calls[tool_calls:],
+            "refined": refined, "seconds": seconds, "n": n, "picked": picked, "threshold": thr,
+            "masks": _upsample_masks(want["masks_lowres"][picked], h, w),
+            "boxes": [list(map(float, b)) for b in want["boxes"][picked]],
+            "scores": [float(s) for s in want["scores"][picked]]}
+
+
+def check_agent(tag: str, cfg: ModelConfig, image: np.ndarray, got: dict) -> None:
+    """set_image once with the ViT's kernels (each run), each segment_phrase
+    K3 alone; the duplicate phrase rejected (no grounding, and named as
+    tried in the pruned history); the selected masks at the
+    image's size, those the processor's own output gives at the picked
+    indices, with their boxes and scores; agent_inference's 4 rounds."""
+    res, calls = got["result"], got["calls"]
+    names = [c[:2] for c in calls]
+    want_names = [("set_image", None)] + [("set_text_prompt", p) for p in AGENT_PHRASES]
+    if names != want_names:
+        raise AssertionError(f"{tag}: processor calls {names}, expected {want_names}")
+    for name, prompt, launches, _, _ in calls + got["refine_calls"]:
+        check_launches(f"{tag} {name}({prompt!r})", launches,
+                       set_image_launches(cfg) if name == "set_image" else prompt_launches(cfg))
+    # the duplicate grounded nothing (the calls above), and the pruned
+    # history's preamble lists the first phrase as tried
+    rejected = f"do NOT reuse): ['{AGENT_PHRASES[0]}']" in res.transcript[1]["content"]
+    same = (len(res.masks) == len(got["masks"])
+            and all(a.shape == image.shape[:2] and a.dtype == bool and np.array_equal(a, b)
+                    for a, b in zip(res.masks, got["masks"]))
+            and res.boxes == got["boxes"] and res.scores == got["scores"])
+    if res.no_mask or res.used_prompts != list(AGENT_PHRASES) or not rejected or not same:
+        raise AssertionError(f"{tag}: no_mask {res.no_mask}, prompts {res.used_prompts}, "
+                             f"duplicate rejected {rejected}, selection equal to the "
+                             f"processor's masks {got['picked']}: {same}")
+    refined = got["refined"]
+    phrases = [c[1] for c in got["refine_calls"] if c[0] == "set_text_prompt"]
+    # the 4 rounds ground these phrases; the last reply refines once more
+    if (refined.rounds != 4 or refined.phrase != "objects"
+            or phrases != ["the crack", "crack", "cracks", "object"]):
+        raise AssertionError(f"{tag}: agent_inference rounds {refined.rounds}, phrases {phrases}")
+
+
+def phase_agent(proc: Sam3Processor, smi: str) -> None:
+    """The agent tier on the interactive phase's bf16 processor (full
+    config, live adapters) over the 1200x900 image: agent_drive's scripted
+    tool agent and the rule-based refiner, checked by check_agent; host s
+    per tool call."""
+    tag = "agent"
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    got = agent_drive(proc, image, "cuda")
+    check_agent(tag, proc.cfg, image, got)
+    refine_s = [c[3] for c in got["refine_calls"]]
+    print(f"{tag}: tool_agent_inference at threshold {got['threshold']:.6f} ("
+          f"{[c[4] for c in got['calls'][1:]]} masks of {list(AGENT_PHRASES)}), masks "
+          f"{got['picked']} of {AGENT_PHRASES[1]!r} selected; host s per tool call "
+          + ", ".join(f"{k} {v:.4f}" for k, v in got["seconds"].items())
+          + f"; processor calls (host s) {[round(c[3], 4) for c in got['calls']]}; "
+          f"agent_inference (RuleBasedRefiner, {got['refined'].rounds} rounds) set_image and "
+          f"prompts (host s) {[round(s, 4) for s in refine_s]} | {smi}", flush=True)
 
 
 def decoder_options(cfg: ModelConfig, device, g: torch.Generator):
@@ -1784,6 +1975,78 @@ def video_stage_seconds(vg: VideoGrounder, frame, prompt: str) -> dict:
     return secs
 
 
+VEVAL = ("video_map", "phrase_ap", "video_cgf1", "phrase_hota", "teta")  # every SA-Co evaluator
+VEVAL_SHIFT = 7  # pixels the "shifted" ground truth moves its first track by
+
+
+def video_tracks(outs: list):
+    """A grounder's per-frame outputs -> (N, T, h, w) bool masks and (N,)
+    mean scores of every object id that has a mask in some frame (absent
+    frames empty)."""
+    ids = sorted({int(i) for o in outs for i in o["obj_ids"]})
+    masks = np.zeros((len(ids), len(outs)) + outs[0]["masks_lowres"].shape[-2:], bool)
+    total, seen = np.zeros(len(ids)), np.zeros(len(ids))
+    for t, o in enumerate(outs):
+        for j, i in enumerate(o["obj_ids"]):
+            k = ids.index(int(i))
+            masks[k, t] = o["masks_lowres"][j]
+            total[k] += float(o["scores"][j])
+            seen[k] += 1
+    keep = masks.any(axis=(1, 2, 3))
+    return masks[keep], (total / np.maximum(seen, 1))[keep]
+
+
+def veval_ground_truth(masks: np.ndarray) -> dict:
+    """A one-video, one-category YT-VIS ground truth whose tracks are
+    ``masks`` (N, T, h, w)."""
+    n, frames, h, w = masks.shape
+    recs = saco_veval.prepare_video_predictions(0, np.ones(n), np.ones(n), masks=masks)
+    keys = ("video_id", "category_id", "segmentations", "bboxes", "areas")
+    return {"videos": [{"id": 0, "height": h, "width": w, "length": frames,
+                        "file_names": [f"{t:05d}.jpg" for t in range(frames)]}],
+            "annotations": [{"id": i + 1, "iscrowd": 0, "height": h, "width": w,
+                             **{k: r[k] for k in keys}} for i, r in enumerate(recs)],
+            "categories": [{"id": 1, "name": "crack"}],
+            "video_np_pairs": [{"video_id": 0, "category_id": 1}]}
+
+
+def saco_veval_check(outs: list, out_dir: str) -> dict:
+    """The grounder's tracks as SA-Co prediction records
+    (prepare_video_predictions), written as one shard by SacoVevalWriter
+    and scored by its finalize against three ground truths: the tracks
+    themselves, the tracks less the first, the first moved by VEVAL_SHIFT
+    pixels. -> {ground truth: (meters, evaluator s, every meter equal to
+    evaluate_saco_veval's on a copy of the records)}."""
+    masks, scores = video_tracks(outs)
+    records = saco_veval.prepare_video_predictions(0, scores, np.ones(len(scores)), masks=masks)
+    writer = saco_veval.SacoVevalWriter(os.path.join(out_dir, "preds.json"), evaluators=VEVAL)
+    writer.add_records(records)
+    writer.write_shard(0)
+    shifted = masks.copy()
+    shifted[0] = np.roll(masks[0], (VEVAL_SHIFT, VEVAL_SHIFT), axis=(-2, -1))
+    res = {}
+    for name, gt_masks in (("self", masks), ("dropped", masks[1:]), ("shifted", shifted)):
+        gt = veval_ground_truth(gt_masks)
+        t0 = time.perf_counter()
+        meters = writer.finalize(gt)
+        secs = time.perf_counter() - t0
+        ref, _ = saco_veval.evaluate_saco_veval(gt, copy.deepcopy(records), VEVAL)
+        same = sorted(ref) == sorted(meters) and all(
+            np.array_equal(meters[k], ref[k], equal_nan=True) for k in ref)
+        res[name] = (meters, secs, same)
+    return res
+
+
+def check_saco_veval(tag: str, res: dict) -> None:
+    """Each ground truth's meters equal to evaluate_saco_veval's on the
+    copy; against the tracks themselves every video mAP and phrase AP 1.0."""
+    self_ap = {k: v for k, v in res["self"][0].items() if "mAP" in k or "phrase_ap" in k}
+    if not all(same for _, _, same in res.values()) or not self_ap or any(
+            v != 1.0 for v in self_ap.values()):
+        raise AssertionError(f"{tag}: saco_veval equal to the copy's "
+                             f"{ {k: v[2] for k, v in res.items()} }, self-scored APs {self_ap}")
+
+
 def phase_video(g: torch.Generator, smi: str):
     """VideoGrounder(propagate=True) on a bf16 Sam3Processor at the full
     config, 16 slots, 7 memory frames, 16 pointers, over VIDEO_FRAMES
@@ -1808,11 +2071,12 @@ def phase_video(g: torch.Generator, smi: str):
     vg = VideoGrounder(proc, num_slots=VIDEO_SLOTS, prob_threshold=0.0, propagate=True,
                        num_maskmem=VIDEO_MASKMEM, max_obj_ptrs=VIDEO_PTRS)
     want = {**set_image_launches(cfg), **prompt_launches(cfg)}
-    secs, n_alive, evicted = [], [], 0
+    secs, n_alive, evicted, outs = [], [], 0, []
     for i, frame in enumerate(frames):
         reset_counts()
         out, s = host_seconds(lambda: vg.step(frame, prompt))
         secs.append(s)
+        outs.append(out)
         check_launches(f"{tag} frame {i}", counts(), want)
         check_track_state(f"{tag} frame {i}", vg.state, VIDEO_MASKMEM, VIDEO_PTRS)
         n_alive.append(len(out["obj_ids"]))
@@ -1876,6 +2140,19 @@ def phase_video(g: torch.Generator, smi: str):
           flush=True)
     if not all(eq.values()):
         raise AssertionError(f"{tag}: card and CPU differ: {eq}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        veval = saco_veval_check(outs, out_dir)
+    n_tracks = len(video_tracks(outs)[1])
+    print(f"{tag}: saco_veval of the grounder's {n_tracks} tracks over {VIDEO_FRAMES} frames "
+          f"(SacoVevalWriter, one shard, every evaluator) against ground truth of the tracks "
+          f"themselves, less the first, the first moved {VEVAL_SHIFT} px: "
+          + "; ".join(f"{name} {secs_:.3f} evaluator s, equal to the CPU copy's {same}, "
+                      + ", ".join(f"{k} {meters[k]:.4f}" for k in (
+                          "video_mask_mAP_50_95", "video_mask_phrase_ap_50_95",
+                          "video_mask_demo_cgf1_micro_50_95", "video_mask_all_phrase_HOTA",
+                          "video_bbox_teta"))
+                      for name, (meters, secs_, same) in veval.items()), flush=True)
+    check_saco_veval(tag, veval)
     del vg, core, st, dm, ds, keep
     torch.cuda.empty_cache()
 
@@ -1924,6 +2201,271 @@ def phase_video(g: torch.Generator, smi: str):
         raise AssertionError(f"{tag}: interleaved sessions differ from the session alone")
     vp.close()
     del vp, proc
+    torch.cuda.empty_cache()
+
+
+# the video-train phase: one clip of VT_STAGES frames from make_synthetic_ytvis
+# (2 videos of VT_FRAMES frames, written at VT_IMG^2 and resized to the
+# model's input), the point-sampled mask loss at the reference's 12544 points
+VT_FRAMES, VT_STAGES, VT_IMG, VT_POINTS = 12, 4, 576, 12544
+VT_Q_TRK = 16      # the association losses' track queries
+VT_RTOL = 1e-5     # a video loss in fp32 on the card against the same on the CPU
+VT_LOSSES = ("loss_semantic_seg", "loss_semantic_dice", "loss_semantic_presence", "loss_mask",
+             "loss_dice")
+
+
+def video_clip(cfg: ModelConfig, root: str, stages: int = VT_STAGES):
+    """One training clip (``VideoSample``) of ``stages`` frames, sampled at
+    random strides by VideoGroundingDataset from the first of the 2 videos
+    of VT_FRAMES frames that make_synthetic_ytvis writes under ``root``."""
+    make_synthetic_ytvis(root, num_videos=2, num_frames=VT_FRAMES, img_size=VT_IMG, seed=SEED)
+    ds = VideoGroundingDataset(root, model_config=cfg, num_stages=stages, training=True, seed=SEED)
+    return ds.load(0)
+
+
+def clip_batch(cfg: ModelConfig, clip) -> Batch:
+    """The clip's frames as one batch of CPU tensors: each frame with the
+    clip's text, no box prompt, and its targets."""
+    from sam3_lora_tpu_torch.models.tokenizer import get_default_tokenizer
+
+    t = clip.frames.shape[0]
+    ids = get_default_tokenizer()([clip.text] * t, context_length=cfg.text_context_length)
+    as_t = torch.from_numpy
+    return Batch(images=as_t(clip.frames), token_ids=as_t(np.asarray(ids, np.int64)),
+                 img_ids=torch.arange(t), geo=GeoPrompt.empty(t, cfg.max_prompt_boxes),
+                 targets=Targets(boxes=as_t(clip.boxes), valid=as_t(clip.valid),
+                                 masks=as_t(clip.masks), mask_valid=as_t(clip.mask_valid),
+                                 is_exhaustive=torch.ones((t,), dtype=torch.bool)))
+
+
+def matched_pairs(out: dict, targets: Targets) -> torch.Tensor:
+    """(B, T) bool: the target slots with a mask that the last layer's
+    matching (train/matcher.py, inside the forward) gave a query."""
+    return (out["indices"][-1] >= 0) & targets.valid & targets.mask_valid
+
+
+def clip_losses(out: dict, targets: Targets, draws) -> dict:
+    """The video tier's losses on a clip's outputs: semantic_seg_loss on the
+    semantic head, the instance masks and the last layer's presence logit;
+    point_sampled_mask_loss (VT_POINTS points at ``draws``) on the matched
+    queries' masks against their targets."""
+    pair = matched_pairs(out, targets)
+    losses = video_losses.semantic_seg_loss(out["semantic_seg"], targets.masks.float(),
+                                            targets.mask_valid,
+                                            presence_logit=out["presence_logit_dec"][-1])
+    losses.update(video_losses.point_sampled_mask_loss(
+        out["pred_masks_matched"][pair], targets.masks[pair].float(), float(draws[0].shape[0]),
+        num_points=VT_POINTS, draws=draws))
+    return losses
+
+
+def card_against_cpu(fn, args, diff, keys, device) -> dict:
+    """``fn(*args)`` -> a dict of losses, run on ``device`` and on the CPU on
+    the same values, in fp32; the ``args`` at the indices ``diff`` are leaves
+    with gradients. -> {key: (value on ``device``, |value - cpu| / |cpu|,
+    max |grad - cpu grad| / max |cpu grad| over the leaves)}."""
+    runs = []
+    for dev in (device, "cpu"):
+        xs = [a.detach().to(dev).float().requires_grad_() if i in diff else a.to(dev)
+              for i, a in enumerate(args)]
+        out = fn(*xs)
+        leaves = [xs[i] for i in diff]
+        runs.append({k: (out[k].detach().cpu(), [
+            (torch.zeros_like(x) if g is None else g).cpu() for x, g in zip(leaves, torch.autograd.grad(
+                out[k], leaves, retain_graph=True, allow_unused=True))]) for k in keys})
+    res = {}
+    for k in keys:
+        (v, gs), (ref, ref_gs) = runs[0][k], runs[1][k]
+        val_err = abs(float(v) - float(ref)) / (abs(float(ref)) or 1.0)
+        grad_err = max(float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                       for g, r in zip(gs, ref_gs))
+        res[k] = (float(v), val_err, grad_err)
+    return res
+
+
+def assoc_inputs(out: dict, targets: Targets, track_ids: np.ndarray, g: torch.Generator):
+    """Seeded association logits (Q_det = the model's queries, VT_Q_TRK
+    tracks) and matched ids from the clip: each matched query carries its
+    slot's track id; the tracks are the clip's live ids and one of them
+    again (a duplicated id). -> (det2trk args, tracking-by-detection args)
+    as CPU tensors."""
+    idx = out["indices"][-1].cpu()
+    pair = matched_pairs(out, targets).cpu()
+    b, q_det = out["pred_logits"].shape[1:3]
+    det = torch.full((b, q_det), -1, dtype=torch.long)
+    rows, slots = torch.nonzero(pair, as_tuple=True)
+    det[rows, idx[rows, slots]] = torch.from_numpy(track_ids.astype(np.int64))[slots]
+    live = track_ids[track_ids >= 0]
+    trk = np.full((b, VT_Q_TRK), -1, np.int64)
+    trk[:, :len(live)] = live
+    trk[:, len(live)] = live[0]
+    trk = torch.from_numpy(trk)
+    d2t = 3.0 * torch.randn((b, q_det, VT_Q_TRK + 2), generator=g)
+    tbd = 3.0 * torch.randn((b, q_det + 1, VT_Q_TRK + 1), generator=g)
+    pred_logits = out["pred_logits"][-1][..., 0].detach().float().cpu()
+    return (d2t, det, trk, pred_logits), (tbd, det, trk)
+
+
+def det2trk(logits, det, trk, pred_logits):
+    return video_losses.det2trk_assoc_loss(logits, det, trk, 2.0, pred_logits=pred_logits,
+                                           is_exhaustive=torch.ones(det.shape[0], dtype=torch.bool,
+                                                                    device=det.device),
+                                           use_fp_loss=True)
+
+
+def tracking_by_detection(logits, det, trk):
+    return video_losses.tracking_by_detection_assoc_loss(logits, det, trk, 2.0)
+
+
+def error_points(out: dict, targets: Targets, side: int) -> dict:
+    """sample_point_from_error_region on the outputs' device against the
+    CPU: the first matched query's mask logits against its target at the
+    mask resolution, and both resized to ``side`` (bilinear, nearest). ->
+    {size: ((y, x), positive, equal to the CPU's)}."""
+    from sam3_lora_tpu_torch.ops.interpolate import resize_bilinear, resize_nearest
+
+    pair = matched_pairs(out, targets)
+    pred = out["pred_masks_matched"][pair][0].detach().float()
+    gt = targets.masks[pair][0].float()
+    res = {}
+    for p, t in ((pred, gt), (resize_bilinear(pred, (side, side)), resize_nearest(gt, (side, side)))):
+        yx, pos = sample_point_from_error_region(p, t)
+        ref_yx, ref_pos = sample_point_from_error_region(p.cpu(), t.cpu())
+        res[p.shape[-1]] = (yx.tolist(), bool(pos),
+                            torch.equal(yx.cpu(), ref_yx) and bool(pos) == bool(ref_pos))
+    return res
+
+
+def video_train_step(model, cfg: ModelConfig, clip, device) -> dict:
+    """One forward of the clip's frames in train mode (matching inside),
+    the video losses and one backward into the adapters; the launches of
+    the forward and of the whole step; then each loss and the error-region
+    sampler on ``device`` against the CPU. Returns what the phase prints
+    and checks."""
+    named = trainable_parameters(model)
+    model.zero_grad(set_to_none=True)
+    model.train()
+    model.seed_dropout(SEED)
+    batch = batch_to_device(clip_batch(cfg, clip), device)
+    sync = sync_of(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = model(batch)
+    fwd = counts()
+    pair = matched_pairs(out, batch.targets)
+    n_pairs = int(pair.sum())
+    if not n_pairs:
+        raise AssertionError("video-train: the matching paired no target that has a mask")
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    draws = video_losses.draw_point_uniforms(n_pairs, VT_POINTS, generator=cpu_gen)
+    losses = clip_losses(out, batch.targets, tuple(d.to(device) for d in draws))
+    sum(losses[k] for k in VT_LOSSES).backward()
+    sync()
+    step_s = time.perf_counter() - t0
+    step = counts()
+    grads = [p.grad for _, p in named if p.grad is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = sum(bool(g.abs().max() > 0) for g in grads)
+
+    # each loss on the card against the CPU, on the same detached logits,
+    # targets and draws
+    t = batch.targets
+    args = (out["semantic_seg"], out["presence_logit_dec"][-1], out["pred_masks_matched"][pair],
+            t.masks.float(), t.mask_valid, t.masks[pair].float(), *draws)
+
+    def seg_and_points(sem, pres, pred, masks, mask_valid, gt, cand, rand):
+        res = video_losses.semantic_seg_loss(sem, masks, mask_valid, presence_logit=pres)
+        res.update(video_losses.point_sampled_mask_loss(pred, gt, float(n_pairs),
+                                                        num_points=VT_POINTS, draws=(cand, rand)))
+        return res
+
+    cpu_losses = card_against_cpu(seg_and_points, [a.detach() for a in args], (0, 1, 2),
+                                  VT_LOSSES, device)
+    d2t_args, tbd_args = assoc_inputs(out, t, clip.track_ids, cpu_gen)
+    cpu_losses.update(card_against_cpu(det2trk, d2t_args, (0,), ("loss_det2trk_assoc",), device))
+    tbd = card_against_cpu(tracking_by_detection, tbd_args, (0,),
+                           ("loss_det2trk_assoc", "loss_trk2det_assoc"), device)
+    cpu_losses.update({"tbd_" + k: v for k, v in tbd.items()})
+    points = error_points(out, t, cfg.img_size)
+
+    # the losses' device ms (CUDA events on the card; the host clock on the CPU)
+    dev = "cpu" if device == "cpu" else "cuda"
+    on_dev = [a.detach().to(device) for a in args]
+    d2t_dev = [a.to(device) for a in d2t_args]
+    tbd_dev = [a.to(device) for a in tbd_args]
+    pred_big = on_dev[2][0].float()
+    loss_ms = {
+        "semantic_seg_loss": median_ms(lambda: video_losses.semantic_seg_loss(
+            on_dev[0], on_dev[3], on_dev[4], presence_logit=on_dev[1]), reps=5, device=dev),
+        "point_sampled_mask_loss": median_ms(lambda: video_losses.point_sampled_mask_loss(
+            on_dev[2], on_dev[5], float(n_pairs), num_points=VT_POINTS,
+            draws=(on_dev[6], on_dev[7])), reps=5, device=dev),
+        "det2trk_assoc_loss": median_ms(lambda: det2trk(*d2t_dev), reps=5, device=dev),
+        "tracking_by_detection_assoc_loss": median_ms(lambda: tracking_by_detection(*tbd_dev),
+                                                      reps=5, device=dev),
+        "sample_point_from_error_region": median_ms(lambda: sample_point_from_error_region(
+            pred_big, on_dev[5][0]), reps=5, device=dev),
+    }
+    return {"fwd": fwd, "step": step, "step_s": step_s, "pairs": n_pairs,
+            "losses": {k: float(v.detach()) for k, v in losses.items()}, "finite": finite,
+            "nonzero": nonzero, "adapters": len(named), "cpu": cpu_losses, "points": points,
+            "loss_ms": loss_ms}
+
+
+def check_video_train(tag: str, cfg: ModelConfig, res: dict) -> None:
+    """The step's launches (the forward K1, K2, K3 once a layer; the step the
+    train phase's design), finite losses, finite adapter gradients of which
+    some are nonzero, each loss within VT_RTOL of the CPU's (value and
+    gradient), the sampler's points equal to the CPU's."""
+    n_global = len(cfg.vit_global_blocks)
+    check_launches(f"{tag} forward", res["fwd"],
+                   {"window_attention_rope_packed": cfg.vit_depth - n_global,
+                    "long_attention_rope_packed": n_global, "long_attention_packed": cfg.enc_layers})
+    check_launches(f"{tag} step", res["step"], train_step_launches(cfg))
+    bad = {k: v for k, v in res["cpu"].items() if not (v[1] <= VT_RTOL and v[2] <= VT_RTOL)}
+    if (not all(np.isfinite(v) for v in res["losses"].values()) or not res["finite"]
+            or not res["nonzero"] or bad or not all(p[2] for p in res["points"].values())):
+        raise AssertionError(f"{tag}: losses {res['losses']}, gradients finite {res['finite']}, "
+                             f"{res['nonzero']} nonzero; off the CPU's: {bad}; error points "
+                             f"{res['points']}")
+
+
+def phase_video_train(g: torch.Generator, smi: str):
+    """The video tier's training losses on the full config's own outputs
+    (bf16, LORA's adapters drawn live): one clip of VT_STAGES frames at
+    1008^2 through the model in train mode as a batch, semantic_seg_loss
+    and point_sampled_mask_loss (VT_POINTS points) on its outputs, one
+    backward; launches, finite losses and gradients; each loss, the two
+    association losses on seeded logits with the clip's track ids, and the
+    error-region sampler on the card against the CPU."""
+    tag = "video-train"
+    cfg = model_config(False)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        clip = video_clip(cfg, root)
+        data_s = time.perf_counter() - t0
+    model = build_sam3_image_model(cfg, lora=LORA, device="cuda")
+    init_model(model, torch.Generator(device="cuda").manual_seed(SEED))
+    live_adapters(model, g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = video_train_step(model, cfg, clip, "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag}: clip of {VT_STAGES} frames ({clip.frames.shape[-1]}^2, text {clip.text!r}, "
+          f"{int((clip.track_ids >= 0).sum())} tracks, masks at {clip.masks.shape[-1]}^2) loaded "
+          f"in {data_s:.3f} s; {res['pairs']} matched pairs; step (forward, losses, backward) "
+          f"{res['step_s']:.4f} host s, peak {peak / 2**30:.3f} GiB; losses "
+          + ", ".join(f"{k} {v:.5f}" for k, v in res["losses"].items())
+          + f"; {res['nonzero']} of {res['adapters']} adapter gradients nonzero; launches "
+          f"{ {k: v for k, v in res['step'].items() if v} } | {smi}", flush=True)
+    print(f"{tag}: each loss on the card against the CPU in fp32 (value rel err, gradient err "
+          f"over the largest CPU gradient; limit {VT_RTOL}): "
+          + ", ".join(f"{k} {e:.2e} {ge:.2e}" for k, (_, e, ge) in res["cpu"].items())
+          + f"; error-region points (size: (y, x), positive, equal) {res['points']}; device ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["loss_ms"].items()) + f" | {smi}",
+          flush=True)
+    check_video_train(tag, cfg, res)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -2195,7 +2737,7 @@ def scale_out_checkpoint(base: str) -> dict:
 def phase_scale_out(g: torch.Generator, smi: str):
     """Data-parallel training, the frame-parallel detector, the base
     checkpoint and the logging utilities at the full config (module
-    docstring, phase 16). Returns (a)'s launches with a group."""
+    docstring, phase 18). Returns (a)'s launches with a group."""
     from sam3_lora_tpu_torch.parallel import multihost
     from sam3_lora_tpu_torch.utils import MemMeter, trace_span
 
@@ -2568,11 +3110,15 @@ def main():
     phase_processor(g)
     phase_processor(g, int8=True)
     phase_validate(g)
-    phase_interactive(g)
+    proc = phase_interactive(g)
+    phase_agent(proc, smi)
+    del proc
+    torch.cuda.empty_cache()
     phase_model_options(g)
     # its own generator: the later phases draw what they drew before it, and
     # the phase alone draws what it draws here
     phase_video(torch.Generator(device="cuda").manual_seed(SEED), smi)
+    phase_video_train(torch.Generator(device="cuda").manual_seed(SEED), smi)
     phase_int8_bwd(g)
     # its own generator, as the video phase
     phase_scale_out(torch.Generator(device="cuda").manual_seed(SEED), smi)

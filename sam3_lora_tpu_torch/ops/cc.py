@@ -11,12 +11,16 @@
   the same.
 * ``edt``: the exact squared Euclidean distance transform, two separable
   O(N^2) min-plus passes blocked over ``chunk`` columns.
+* ``sample_point_from_error_region``: the corrective click of interactive
+  refinement, the deepest pixel (largest EDT) of the larger error region.
 
 The video tier fills holes and removes sprinkles with them
 (``video.py::fill_holes_in_mask_scores``).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -101,3 +105,26 @@ def edt(mask: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     f = torch.where(mask > 0, 1e12, 0.0).float()
     d = _edt_1d(f, chunk)             # along rows
     return _edt_1d(d.T, chunk).T      # along columns
+
+
+def sample_point_from_error_region(
+    pred_mask: torch.Tensor, gt_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Interactive-refinement point selection (``sam3_tracker_utils.py``):
+    the pixel deepest inside the error mask, the false negatives when they
+    are at least as many as the false positives, else the false positives.
+    The JAX function's ``rng`` argument is unused there, so this takes none.
+
+    Returns ((y, x) int32, is_positive bool): positive when the error is a
+    false negative (missed foreground). Ties of the EDT go to the lowest
+    linear index, taken as the smallest index among the maxima (not left to
+    ``argmax``'s order on the device); with no error pixel, (0, 0) and True."""
+    fn = (gt_mask > 0) & (pred_mask <= 0)
+    fp = (gt_mask <= 0) & (pred_mask > 0)
+    use_fn = fn.sum() >= fp.sum()
+    err = torch.where(use_fn, fn, fp)
+    d = edt(err).reshape(-1)
+    idx = torch.arange(d.numel(), device=d.device)
+    flat = torch.where(d == d.max(), idx, d.numel()).amin()
+    w = err.shape[-1]
+    return torch.stack([flat // w, flat % w]).to(torch.int32), use_fn

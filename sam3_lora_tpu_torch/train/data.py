@@ -35,6 +35,9 @@ from ..models.tokenizer import get_default_tokenizer
 from ..ops.rle import segmentation_to_mask
 from . import transforms as T
 
+IMAGE_MEAN = 0.5  # the normalization of a float image, (x / 255 - mean) / std
+IMAGE_STD = 0.5
+
 
 @dataclass
 class Sample:

@@ -32,7 +32,11 @@ bit for bit the CPU's; the tracker's propagate and memory update at the
 full width against their fp32 CPU run (``chip_smoke.SMALL_TOL``). Scale-out:
 two gloo ranks on the one card (the trainer's bucketed mean and broadcast,
 the frame-parallel all-gather on CUDA tensors), and the frame-parallel
-detector at one rank against each frame alone."""
+detector at one rank against each frame alone. The video tier's training
+losses (``train/video_losses.py``) and the error-region point sampler on
+the card against the CPU in fp32 (``chip_smoke.VT_RTOL`` for each loss
+and its gradient; the sampler's point equal), and chip_smoke's video-train
+step at the small config's widths."""
 
 import os
 
@@ -958,3 +962,70 @@ def test_frame_parallel_detector_on_the_card(gen):
         alone = eng._forward(torch.from_numpy(frame[None]).cuda(), torch.from_numpy(ids[None]).cuda())
         for got, want in zip(out, alone):
             assert np.abs(got - want[0].cpu().numpy()).max() <= chip_smoke.SMALL_TOL
+
+
+@pytest.mark.parametrize("focal", [False, True])
+def test_video_losses_on_the_card_match_the_cpu(gen, focal):
+    from sam3_lora_tpu_torch.train import video_losses as vl
+
+    g = torch.Generator().manual_seed(1)
+    b, t, m = 4, 3, 72
+    sem = 3.0 * torch.randn((b, 1, m, m), generator=g)
+    masks = (torch.rand((b, t, 2 * m, 2 * m), generator=g) > 0.7).float()
+    valid = torch.rand((b, t), generator=g) > 0.3
+    pres = torch.randn((b, 1), generator=g)
+    pred = 3.0 * torch.randn((5, m, m), generator=g)
+    gt = (torch.rand((5, 4 * m, 4 * m), generator=g) > 0.5).float()
+    draws = vl.draw_point_uniforms(5, 500, generator=g)
+
+    def seg_and_points(sem, pres, pred, masks, valid, gt, cand, rand):
+        out = vl.semantic_seg_loss(sem, masks, valid, presence_logit=pres, focal=focal)
+        out.update(vl.point_sampled_mask_loss(pred, gt, 5.0, num_points=500, draws=(cand, rand)))
+        return out
+
+    res = chip_smoke.card_against_cpu(seg_and_points, [sem, pres, pred, masks, valid, gt, *draws],
+                                      (0, 1, 2), chip_smoke.VT_LOSSES, "cuda")
+    det = torch.randint(-1, 6, (b, 200), generator=g)
+    trk = torch.randint(-1, 6, (b, 16), generator=g)
+    trk[:, 1] = trk[:, 0]
+    res.update(chip_smoke.card_against_cpu(
+        chip_smoke.det2trk, [torch.randn((b, 200, 18), generator=g), det, trk,
+                             torch.randn((b, 200), generator=g)], (0,), ("loss_det2trk_assoc",),
+        "cuda"))
+    res.update({"tbd " + k: v for k, v in chip_smoke.card_against_cpu(
+        chip_smoke.tracking_by_detection, [torch.randn((b, 201, 17), generator=g), det, trk],
+        (0,), ("loss_det2trk_assoc", "loss_trk2det_assoc"), "cuda").items()})
+    bad = {k: v for k, v in res.items()
+           if not (v[1] <= chip_smoke.VT_RTOL and v[2] <= chip_smoke.VT_RTOL)}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("side", [288, 1008])
+def test_error_point_on_the_card_equals_the_cpu(gen, side):
+    from sam3_lora_tpu_torch.ops.cc import sample_point_from_error_region
+
+    g = torch.Generator().manual_seed(side)
+    for density in (0.1, 0.5, 0.9):
+        pred = torch.randn((side, side), generator=g)
+        gt = (torch.rand((side, side), generator=g) < density).float()
+        gt[side // 4:side // 2, side // 4:side // 2] = 1.0  # a deep region
+        want = sample_point_from_error_region(pred, gt)
+        got = sample_point_from_error_region(pred.cuda(), gt.cuda())
+        assert torch.equal(got[0].cpu(), want[0]) and bool(got[1]) == bool(want[1])
+
+
+def test_video_train_step_on_the_card(gen, tmp_path):
+    """chip_smoke's video-train drive at the small config's widths (the
+    kernels on the path), bf16 on the card: its launches, finite losses
+    and gradients, each loss and the sampler against the CPU."""
+    from sam3_lora_tpu_torch.config import tiny_model_config
+    from sam3_lora_tpu_torch.models import build_sam3_image_model, init_model
+
+    cfg = tiny_model_config(flash_attention_min_seq=16, vit_dim=128, vit_heads=2, d_model=128,
+                            enc_heads=4, dtype="bfloat16")
+    clip = chip_smoke.video_clip(cfg, str(tmp_path))
+    model = build_sam3_image_model(cfg, lora=chip_smoke.LORA, device="cuda")
+    init_model(model, torch.Generator(device="cuda").manual_seed(0))
+    chip_smoke.live_adapters(model, gen)
+    res = chip_smoke.video_train_step(model, cfg, clip, "cuda")
+    chip_smoke.check_video_train("video-train", cfg, res)

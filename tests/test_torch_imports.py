@@ -4,7 +4,9 @@ the GPU has no use for them, and the port keeps its own copies of what it
 needs (config, tokenizer, datapoint transforms, the RLE codec and its C++
 source, the image evaluators, ``cli/prepare_data.py``, ``interactive.py``,
 ``io_utils.py``, ``eval/video_eval.py``, ``HostShard`` and
-``filesystem_gather``)."""
+``filesystem_gather``, ``train/video_data.py``, ``eval/saco_veval.py``,
+``viz.py``, ``agent.py``, ``agent_tools.py`` with its prompt corpus,
+``agent_helpers.py`` and ``utils/instantiate.py``)."""
 
 import os
 import subprocess
@@ -44,6 +46,13 @@ CODE = (
     "import sam3_lora_tpu_torch.parallel.frame_parallel, sam3_lora_tpu_torch.utils.logging\n"
     "from sam3_lora_tpu_torch.utils import setup_logging, TensorBoardLogger, MemMeter\n"
     "from sam3_lora_tpu_torch.utils.checkpoint import save_base_checkpoint\n"
+    "import sam3_lora_tpu_torch.train.video_losses, sam3_lora_tpu_torch.train.video_data\n"
+    "import sam3_lora_tpu_torch.eval.saco_veval, sam3_lora_tpu_torch.viz\n"
+    "import sam3_lora_tpu_torch.agent, sam3_lora_tpu_torch.agent_helpers\n"
+    "import sam3_lora_tpu_torch.agent_tools as at; at.load_system_prompt('grounding_agent')\n"
+    "import sam3_lora_tpu_torch.utils.instantiate as ui\n"
+    "ui.instantiate({'_target_': 'sam3_lora_tpu_torch.config.LoRAConfig', 'rank': 2})\n"
+    "from sam3_lora_tpu_torch.ops.cc import sample_point_from_error_region\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"

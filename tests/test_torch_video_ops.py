@@ -13,7 +13,11 @@ bids tie and the lowest row wins), invalid rows, more rows than columns
 with the parity of the iteration count, so 1023, 1024 and 1025 iterations
 each give JAX's), and a batch of problems that converge at different
 iterations. CC cases: the snake, random masks of several densities, a
-batch equal to the masks one at a time and to JAX's."""
+batch equal to the masks one at a time and to JAX's. The error-region point
+sampler (``ops/cc.py::sample_point_from_error_region``, whose JAX ``rng``
+is unused): false negatives or false positives the larger region, equal
+counts (the false negatives win), an EDT tie (the lowest linear index
+wins) and no error ((0, 0), positive), each equal to JAX's."""
 
 from functools import partial
 
@@ -27,7 +31,9 @@ from sam3_lora_tpu.ops import association as jassociation
 from sam3_lora_tpu.ops import cc as jcc
 from sam3_lora_tpu.train import matcher as jmatcher
 from sam3_lora_tpu_torch.ops.association import associate_det_trk
-from sam3_lora_tpu_torch.ops.cc import component_sizes, connected_components, edt
+from sam3_lora_tpu_torch.ops.cc import (
+    component_sizes, connected_components, edt, sample_point_from_error_region,
+)
 from sam3_lora_tpu_torch.train import matcher
 
 
@@ -214,3 +220,50 @@ def test_edt_equals_jax(chunk):
     ys, xs = np.where(~mask)
     i, j = 5, 7
     assert got[i, j] == (0 if not mask[i, j] else ((ys - i) ** 2 + (xs - j) ** 2).min())
+
+
+def _error_case(case):
+    """-> (pred, gt) (H, W) masks of one point-sampler case."""
+    rng = np.random.RandomState(3)
+    h, w = 23, 29
+    pred, gt = np.zeros((h, w), np.float32), np.zeros((h, w), np.float32)
+    if case == "fn_dominates":
+        gt[2:15, 4:20] = 1
+        pred[5:9, 6:12] = 1
+        pred[18:20, 22:25] = 1          # a small false positive
+    elif case == "fp_dominates":
+        pred = (rng.rand(h, w) > 0.4).astype(np.float32) * rng.uniform(0.1, 3.0, (h, w))
+        gt[10:13, 10:13] = 1
+    elif case == "equal_counts":
+        gt[1:5, 1:5] = 1                # 16 missed pixels
+        pred[10:14, 20:24] = 1          # 16 spurious ones
+    elif case == "edt_tie":
+        gt[4:8, 4:8] = 1                # a 4x4 region: its inner 2x2 tie
+        gt[14:18, 20:24] = 1            # a second, equally deep
+    elif case == "random":
+        gt = (rng.rand(h, w) > 0.5).astype(np.float32)
+        pred = rng.standard_normal((h, w)).astype(np.float32)
+    return pred, gt
+
+
+@pytest.mark.parametrize("case", ["fn_dominates", "fp_dominates", "equal_counts", "edt_tie",
+                                  "no_error", "random"])
+def test_error_point_equals_jax(case):
+    pred, gt = _error_case(case)
+    if case == "no_error":
+        pred = gt = (np.random.RandomState(4).rand(23, 29) > 0.5).astype(np.float32)
+    want_yx, want_pos = jax.jit(jcc.sample_point_from_error_region)(
+        jnp.asarray(pred), jnp.asarray(gt), jax.random.PRNGKey(0))
+    yx, pos = sample_point_from_error_region(torch.from_numpy(pred), torch.from_numpy(gt))
+    assert yx.dtype == torch.int32 and pos.dtype == torch.bool
+    np.testing.assert_array_equal(yx.numpy(), np.asarray(want_yx))
+    assert bool(pos) == bool(want_pos)
+    y, x = yx.tolist()
+    if case == "no_error":
+        assert (y, x, bool(pos)) == (0, 0, True)
+    elif case == "equal_counts":
+        assert bool(pos) and gt[y, x] == 1
+    elif case == "fp_dominates":
+        assert not bool(pos) and pred[y, x] > 0 and gt[y, x] == 0
+    elif case == "edt_tie":
+        assert (y, x) == (5, 5)         # the first of the tied maxima

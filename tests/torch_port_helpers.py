@@ -194,3 +194,42 @@ def code_of(module) -> str:
                 and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str)):
             node.body = body[1:] or [ast.Pass()]
     return ast.dump(tree)
+
+
+def count_card_entries(monkeypatch):
+    """On the CPU, take the card's attention routes and count what the
+    card's kernels count: each entry's forward computations (not a remat
+    replay that takes a kept result back) on ``entry.launches``, their
+    rotation passes on ``rope_cuda.launches`` and the backwards on
+    ``entry.bwd_launches`` (the counters ``chip_smoke.counts`` reads,
+    zeroed by ``chip_smoke.reset_counts``)."""
+    from sam3_lora_tpu_torch.ops import attention_kernel as ak
+    from sam3_lora_tpu_torch.ops import window_attention as wa
+
+    monkeypatch.setattr(wa, "_FORCE_INTERPRET", True)
+    stack = []
+
+    def on_entry(fn):
+        def wrapped(entry, *a, **k):
+            stack.append(entry)
+            try:
+                return fn(entry, *a, **k)
+            finally:
+                stack.pop()
+        return wrapped
+
+    def forward(q, k, v, scale, cos=None, sin=None, _plain=ak.attention_plain):
+        if stack:
+            stack[-1].launches += 1
+            ak.rope_cuda.launches += cos is not None
+        return _plain(q, k, v, scale, cos, sin)
+
+    def backward(*a, _plain=ak.attention_bwd_plain, **k):
+        if stack:
+            stack[-1].bwd_launches += 1
+        return _plain(*a, **k)
+
+    monkeypatch.setattr(ak, "_forward", on_entry(ak._forward))
+    monkeypatch.setattr(ak, "_backward", on_entry(ak._backward))
+    monkeypatch.setattr(ak, "attention_plain", forward)
+    monkeypatch.setattr(ak, "attention_bwd_plain", backward)
