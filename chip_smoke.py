@@ -169,14 +169,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    request bit for bit); (e) a trace_span among one profiled
                    step's events, MemMeter's peak equal to
                    max_memory_allocated.
- 19. small       - a small config whose path runs every attention kernel: its
+ 19. resize      - the serving path's PIL-exact resizes on the card: three
+                   uint8 images (480x640, 900x1200, 1080x1920) to 1008^2
+                   byte for byte PIL's, preprocess equal to (PIL / 255 -
+                   0.5) / 0.5, 8 masks 288^2 -> 900x1200 equal to PIL's mask
+                   resize; preprocess's median host s at 900x1200 against
+                   PIL's on the host.
+ 20. convert     - the full bf16 config: a seeded model's base written as a
+                   reference-named fp32 .pt (reference_state_dict, the
+                   converter's inverse), converted by cli.convert_checkpoint,
+                   served by SAM3LoRAInference(base_checkpoint=...) through
+                   K1-K3: one request's scores, boxes and masks bit for bit
+                   the source model's; the convert and load seconds.
+ 21. merge       - merge_lora_into_base with live adapters at the full
+                   config: in bf16 one request adapted, then merged, within
+                   MERGE_CONTROL_FACTOR x a one-bf16-rounding control; in the
+                   int8 tier an adapted request (K5 x96) against one of an
+                   engine that merges the same adapters before quantizing (K4
+                   alone), each request's launches and device ms.
+ 22. small       - a small config whose path runs every attention kernel: its
                    eval forward and one training step (loss, matching and
                    adapter gradients) in bf16 on the card against the same in
                    fp32 on the CPU; again with its ViT in the int8 tier; at
                    the bench settings (bf16 storage, int8 and int8_bwd); and
                    one training step per window route, with and without
                    RoPE.
- 20. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
+ 23. probes      - the window-kernel probes (sam3_lora_tpu_torch/probes:
                    window_cost, dma_floor, packed) at bench.py's batch 8
                    through their rows(): every stage rung (K1's own kernel
                    at each stage), op rate, work-per-CTA sweep and the
@@ -221,7 +239,9 @@ from sam3_lora_tpu_torch.config import (
 )
 from sam3_lora_tpu_torch.cli.validate import dump_predictions, score_predictions, validate_images
 from sam3_lora_tpu_torch.eval import load_predictions
-from sam3_lora_tpu_torch.inference import SAM3LoRAInference
+from sam3_lora_tpu_torch.inference import (
+    IMAGE_MEAN, IMAGE_STD, SAM3LoRAInference, preprocess_image, resize_masks_to,
+)
 from sam3_lora_tpu_torch.measure import (
     KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, paired_ms,
     profile_step,
@@ -231,6 +251,7 @@ from sam3_lora_tpu_torch.models import Batch, GeoPrompt, Targets, build_sam3_ima
 from sam3_lora_tpu_torch.models.layers import LoRALinear
 from sam3_lora_tpu_torch.models.lora import trainable_parameters
 from sam3_lora_tpu_torch.ops.attention import dot_product_attention
+from sam3_lora_tpu_torch.ops.interpolate import resize_pil_bilinear
 from sam3_lora_tpu_torch.ops.masks import mask_iou
 from sam3_lora_tpu_torch.ops import nms as nms_ops
 from sam3_lora_tpu_torch.ops.rle import rle_decode, rle_encode_numpy
@@ -836,15 +857,15 @@ def model_config(int8: bool) -> ModelConfig:
     return ModelConfig(dtype="bfloat16", base_quant="int8" if int8 else "none")
 
 
-def live_adapters(model: torch.nn.Module, g: torch.Generator) -> int:
-    """Draw every adapter's ``lora_b`` from ``g`` (zero at init, when the
-    adapter branch adds nothing), so that the branch is live; returns how
-    many adapters there are."""
+def live_adapters(model: torch.nn.Module, g: torch.Generator, std: float = 0.02) -> int:
+    """Draw every adapter's ``lora_b`` from ``g`` with deviation ``std``
+    (zero at init, when the adapter branch adds nothing), so that the branch
+    is live; returns how many adapters there are."""
     n = 0
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, LoRALinear) and m.lora_b is not None:
-                m.lora_b.normal_(0.0, 0.02, generator=g)
+                m.lora_b.normal_(0.0, std, generator=g)
                 n += 1
     return n
 
@@ -2892,6 +2913,291 @@ def phase_scale_out(g: torch.Generator, smi: str):
     return launches
 
 
+RESIZE_SHAPES = ((480, 640), (900, 1200), (1080, 1920))
+RESIZE_MASKS = 8
+RESIZE_REPS = 20
+
+
+def pil_resize(image: np.ndarray, hw) -> np.ndarray:
+    """PIL ``BILINEAR`` of a uint8 (H, W, 3) image or (H, W) mask to ``hw``:
+    the JAX engine's host resize."""
+    from PIL import Image
+
+    return np.asarray(Image.fromarray(image).resize((hw[1], hw[0]), Image.BILINEAR))
+
+
+def phase_resize(smi: str) -> None:
+    """The serving path's resizes on the card against PIL's on the host:
+    ``resize_pil_bilinear`` of three full-size images to 1008^2 byte for
+    byte, ``preprocess_image`` equal to (PIL / 255 - 0.5) / 0.5 value for
+    value, ``resize_masks_to`` of 288^2 masks to 900x1200 equal to the JAX
+    engine's PIL mask resize; preprocess's median host s at 900x1200."""
+    r = ModelConfig().img_size
+    for hw in RESIZE_SHAPES:
+        image = np.random.RandomState(sum(hw)).randint(0, 256, (*hw, 3)).astype(np.uint8)
+        want = pil_resize(image, (r, r))
+        got = resize_pil_bilinear(torch.from_numpy(image).cuda(), (r, r), dims=(0, 1))
+        n_bad = int((got.cpu().numpy() != want).sum())
+        x, out_hw = preprocess_image(image, r, "cuda")
+        norm = ((want.astype(np.float32) / 255.0 - IMAGE_MEAN) / IMAGE_STD).transpose(2, 0, 1)[None]
+        same = x.is_cuda and out_hw == hw and np.array_equal(x.cpu().numpy(), norm)
+        print(f"resize: {hw[0]}x{hw[1]} -> {r}^2 on the card: {n_bad} of {want.size} values "
+              f"differ from PIL's; preprocess equal to PIL's (x / 255 - 0.5) / 0.5: {same}",
+              flush=True)
+        if n_bad or not same:
+            raise AssertionError(f"resize {hw}: {n_bad} values differ from PIL's, "
+                                 f"normalized equal {same}")
+    masks = np.random.RandomState(SEED).rand(RESIZE_MASKS, 288, 288) > 0.5
+    want = np.stack([pil_resize((m * 255).astype(np.uint8), (900, 1200)) > 127.5 for m in masks])
+    got = resize_masks_to(torch.from_numpy(masks).cuda(), (900, 1200)).cpu().numpy()
+    n_bad = int((got != want).sum())
+    print(f"resize: {RESIZE_MASKS} masks 288^2 -> 900x1200 on the card: {n_bad} of {want.size} "
+          f"pixels differ from PIL's", flush=True)
+    if n_bad:
+        raise AssertionError(f"resize: {n_bad} mask pixels differ from PIL's")
+
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    host_seconds(lambda: preprocess_image(image, r, "cuda"))  # the tap tables, once a shape
+    card = [host_seconds(lambda: preprocess_image(image, r, "cuda"))[1]
+            for _ in range(RESIZE_REPS)]
+    pil = []
+    for _ in range(RESIZE_REPS):
+        t0 = time.perf_counter()
+        (pil_resize(image, (r, r)).astype(np.float32) / 255.0 - IMAGE_MEAN) / IMAGE_STD
+        pil.append(time.perf_counter() - t0)
+    print(f"resize: preprocess 900x1200 -> {r}^2, host s to a device sync, median of "
+          f"{RESIZE_REPS}: {statistics.median(card):.5f} on the card (uint8 to the card, the "
+          f"two passes, the normalization), against {statistics.median(pil):.5f} for PIL and "
+          f"the normalization on the host (the JAX engine's) | {smi}", flush=True)
+
+
+def reference_state_dict(flat: dict, cfg: ModelConfig) -> dict:
+    """The inverse of the checkpoint converter: the model's base as flat
+    JAX-named, JAX-layout arrays (``base_params_to_jax``; the scanned ViT
+    groups stacked when ``cfg`` scans them) -> a state dict under the
+    reference SAM3 detector's names and layouts: the decoder's boxRPB MLPs
+    out of ``rpb.``, ``kernel`` back to ``weight`` (a linear's (out, in), a
+    conv's (out, in, kh, kw)), ``in_proj_weight`` (3d, d), the scanned
+    groups as ``blocks.{i}``; and the tensors the converter skips (a
+    block's RoPE table, the pixel decoder's unused third stage). The keys
+    carry no ``detector.`` prefix: the converter's ``SKIP_PATTERNS`` and
+    its scanned lookup (``_stack_scanned``) name the keys without it."""
+    import re
+
+    from sam3_lora_tpu_torch.cli.convert_checkpoint import RENAMES, vit_scan_map
+
+    groups = vit_scan_map(cfg) if cfg.vit_scan_blocks else {}
+    sd = {}
+    for name, arr in flat.items():
+        m = re.match(r"(.*trunk\.)(scan_blocks_\d+)\.block\.(.*)$", name)
+        if m and m.group(2) in groups:
+            items = [(f"{m.group(1)}blocks.{i}.{m.group(3)}", arr[j])
+                     for j, i in enumerate(groups[m.group(2)])]
+        else:
+            items = [(name, arr)]
+        for key, t in items:
+            leaf = key.rsplit(".", 1)[-1]
+            if leaf == "kernel":
+                key = key[: -len("kernel")] + "weight"
+                t = t.T if t.ndim == 2 else t.transpose(3, 2, 0, 1)
+            elif leaf == "in_proj_weight":
+                t = t.T
+            for src, dst in RENAMES:
+                if key.startswith(dst):
+                    key = src + key[len(dst):]
+            sd[key] = torch.from_numpy(np.ascontiguousarray(t))
+    block = next(k for k in sd if ".trunk.blocks.0." in k).split(".trunk.blocks.0.")[0]
+    sd[f"{block}.trunk.blocks.0.attn.freqs_cis"] = torch.zeros(4, 2)
+    sd["segmentation_head.pixel_decoder.conv_layers.2.weight"] = torch.zeros(2, 2, 3, 3)
+    sd["segmentation_head.pixel_decoder.norms.2.weight"] = torch.zeros(2)
+    return sd
+
+
+def request_launches(cfg: ModelConfig) -> dict:
+    """Launches of one ``predict`` of one prompt: set_image's and a prompt's."""
+    return dict(collections.Counter(set_image_launches(cfg)) + collections.Counter(
+        prompt_launches(cfg)))
+
+
+def phase_convert(smi: str) -> None:
+    """The reference-checkpoint converter at the full config, bf16: a seeded
+    model's base written as a reference-named fp32 ``.pt``, converted by
+    ``cli/convert_checkpoint.py``'s main, served by ``SAM3LoRAInference(
+    base_checkpoint=...)`` through K1-K3: one request's scores, boxes and
+    masks bit for bit the source model's."""
+    from sam3_lora_tpu_torch.cli import convert_checkpoint
+    from sam3_lora_tpu_torch.utils.checkpoint import base_params_to_jax
+
+    cfg = model_config(False)
+    src = SAM3LoRAInference(cfg, None, seed=SEED + 2, device="cuda")
+    sd = reference_state_dict(base_params_to_jax(src.model), cfg)
+    n_ref = len(sd)
+    with tempfile.TemporaryDirectory() as d:
+        pt, npz = os.path.join(d, "sam3.pt"), os.path.join(d, "base.npz")
+        t0 = time.perf_counter()
+        torch.save(sd, pt)
+        save_s = time.perf_counter() - t0
+        del sd
+        t0 = time.perf_counter()
+        convert_checkpoint.main(["--torch-ckpt", pt, "--out", npz])
+        convert_s = time.perf_counter() - t0
+        pt_bytes, npz_bytes = os.path.getsize(pt), os.path.getsize(npz)
+        os.remove(pt)
+        t0 = time.perf_counter()
+        engine = SAM3LoRAInference(cfg, None, base_checkpoint=npz, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    want = src.predict(image, PROMPTS[0], threshold=0.0)[0]
+    reset_counts()
+    got = engine.predict(image, PROMPTS[0], threshold=0.0)[0]
+    check_launches("convert", counts(), request_launches(cfg))
+    keys = ("scores", "boxes", "masks")
+    equal = {k: bool(np.array_equal(got[k], want[k])) for k in keys}
+    print(f"convert: {n_ref} reference tensors ({pt_bytes / 2**30:.3f} GiB .pt, written in "
+          f"{save_s:.2f} s) -> {npz_bytes / 2**30:.3f} GiB .npz by cli.convert_checkpoint in "
+          f"{convert_s:.2f} s, SAM3LoRAInference(base_checkpoint=...) on the card in "
+          f"{load_s:.2f} s; one request ({got['num_detections']} detections at threshold 0, "
+          f"K1-K3): bit for bit the source model's {equal} | {smi}", flush=True)
+    if not all(equal.values()) or not got["num_detections"] == want["num_detections"] > 0:
+        raise AssertionError(f"convert: outputs against the source model's {equal}")
+    del src, engine
+    torch.cuda.empty_cache()
+
+
+MERGE_CONTROL_FACTOR = 4
+# the adapters' own effect, max |bare base - adapted|, must be this many
+# times the bf16 merge tolerance on every output: a merge that did nothing,
+# or folded in a wrong scaling, then fails the tolerance
+MERGE_SIGNAL_FACTOR = 4
+# the merge phase's adapters: at the other phases' 0.02 they move the random
+# model's scores by 1.3x the tolerance alone (an H100, 700 W); at 0.1 by
+# 6.6x, while the merged forward's distance from the adapted one stays at
+# the bf16 noise floor
+MERGE_ADAPTER_STD = 0.1
+RAW_OUTPUTS = ("scores", "presence", "boxes", "masks")
+
+
+def max_diffs(a, b) -> dict:
+    return {k: (x - y).abs().max().item() for k, x, y in zip(RAW_OUTPUTS, a, b)}
+
+
+def bf16_rounding_control(model: torch.nn.Module, g: torch.Generator) -> None:
+    """Move the base weight of every adapted layer by a random error of the
+    size of one bf16 rounding (uniform in +-half a bf16 ulp of each value):
+    the forward's sensitivity to the rounding that merging adds."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LoRALinear) and m.lora_a is not None:
+                _, exp = torch.frexp(m.weight)
+                ulp = torch.ldexp((m.weight != 0).to(m.weight.dtype), exp - 8)
+                u = torch.rand(m.weight.shape, generator=g, device=m.weight.device)
+                m.weight.add_((u - 0.5) * ulp)
+
+
+def phase_merge(g: torch.Generator, smi: str) -> None:
+    """merge_lora_into_base at the full config with live adapters (``lora_b``
+    drawn at MERGE_ADAPTER_STD), by the recipe a user follows to serve a
+    merged model in the int8 tier.
+
+    bf16: one request's raw outputs from the bare base (adapters detached),
+    adapted, and merged in place. The merged forward's largest difference
+    from the adapted one is held to MERGE_CONTROL_FACTOR times a control's,
+    the adapted forward with each adapted base weight moved by one bf16
+    rounding's random error (merging rounds W + dW once where the adapted
+    forward rounds W, the adapter's two products and its sum); the
+    adapters' effect, bare base against adapted, must be MERGE_SIGNAL_FACTOR
+    times that tolerance. The merged base is then saved
+    (``save_base_checkpoint``).
+
+    The int8 tier: an engine with the adapters (K5 on the ViT's qkv, fc1,
+    fc2) against one that loads the merged base (``base_checkpoint=``) and
+    quantizes it (K4 alone). The merged request's raw outputs are held to
+    MERGE_CONTROL_FACTOR times the adapted int8 request's distance from the
+    adapted bf16 one (one int8 quantization of the base; merging swaps
+    that of W for that of W + dW). Each request's launches and device ms."""
+    from sam3_lora_tpu_torch.models.lora import merge_lora_into_base, save_lora_weights
+    from sam3_lora_tpu_torch.utils.checkpoint import save_base_checkpoint
+
+    image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
+    cfg = model_config(False)
+    engine = SAM3LoRAInference(cfg, LORA, seed=SEED, device="cuda")
+    live_adapters(engine.model, g, MERGE_ADAPTER_STD)
+    img, _ = preprocess_image(image, cfg.img_size, "cuda")
+    ids = torch.from_numpy(np.asarray(engine.tokenizer(PROMPTS[0], context_length=cfg.
+                                                       text_context_length), np.int64)).cuda()
+    adapted = engine._forward(img, ids)
+    layers = [m for m in engine.model.modules()
+              if isinstance(m, LoRALinear) and m.lora_a is not None]
+    saved = [(m.lora_a, m.lora_b, m.weight.clone()) for m in layers]
+    for m in layers:
+        m.lora_a = m.lora_b = None
+    base = engine._forward(img, ids)
+    for m, (a, b, _) in zip(layers, saved):
+        m.lora_a, m.lora_b = a, b
+    bf16_rounding_control(engine.model, torch.Generator(device="cuda").manual_seed(SEED))
+    control = engine._forward(img, ids)
+    with torch.no_grad():
+        for m, (_, _, w) in zip(layers, saved):
+            m.weight.copy_(w)
+    del saved, layers
+    with tempfile.TemporaryDirectory() as d:
+        lora_path, base_path = os.path.join(d, "lora.npz"), os.path.join(d, "merged_base.npz")
+        save_lora_weights(engine.model, lora_path)
+        n = merge_lora_into_base(engine.model)
+        merged = engine._forward(img, ids)
+        diff, ctrl = max_diffs(merged, adapted), max_diffs(control, adapted)
+        effect = max_diffs(base, adapted)
+        tol = {k: MERGE_CONTROL_FACTOR * ctrl[k] for k in RAW_OUTPUTS}
+        print(f"merge: bf16, {n} adapters merged; max |merged - adapted| {diff}; tolerance "
+              f"{MERGE_CONTROL_FACTOR} x the one-rounding control's {ctrl}; the adapters' "
+              f"effect max |bare base - adapted| {effect} (at least {MERGE_SIGNAL_FACTOR} x "
+              f"the tolerance)", flush=True)
+        bad = [k for k in RAW_OUTPUTS if not diff[k] <= tol[k]]
+        if bad or not all(torch.isfinite(t).all() for t in merged):
+            raise AssertionError(f"merge: {bad} past {MERGE_CONTROL_FACTOR} x the control")
+        weak = [k for k in RAW_OUTPUTS if not effect[k] >= MERGE_SIGNAL_FACTOR * tol[k]]
+        if weak:
+            raise AssertionError(f"merge: the adapters move {weak} by less than "
+                                 f"{MERGE_SIGNAL_FACTOR} x the tolerance")
+        save_base_checkpoint(engine.model, base_path)
+        del engine, base, control, merged
+        torch.cuda.empty_cache()
+
+        gemm_int8.GEMM_LORA_FUSED = True
+        cfg8 = model_config(True)
+        engines = {"adapted": SAM3LoRAInference(cfg8, LORA, seed=SEED, weights=lora_path,
+                                                device="cuda"),
+                   "merged": SAM3LoRAInference(cfg8, None, base_checkpoint=base_path,
+                                               device="cuda")}
+    raw8 = {tag: e._forward(img, ids) for tag, e in engines.items()}
+    diff8, ctrl8 = max_diffs(raw8["merged"], raw8["adapted"]), max_diffs(raw8["adapted"], adapted)
+    print(f"merge: int8 tier, max |merged - adapted| {diff8}; tolerance "
+          f"{MERGE_CONTROL_FACTOR} x the adapted int8 request's distance from bf16 {ctrl8}",
+          flush=True)
+    bad = [k for k in RAW_OUTPUTS if not diff8[k] <= MERGE_CONTROL_FACTOR * ctrl8[k]]
+    if bad or not all(torch.isfinite(t).all() for t in raw8["merged"]):
+        raise AssertionError(f"merge: int8 {bad} past {MERGE_CONTROL_FACTOR} x the control")
+    del raw8, adapted
+    launches = {}
+    for tag, engine in engines.items():
+        engine.predict(image, PROMPTS[0])  # first call: set-up
+        reset_counts()
+        engine.predict(image, PROMPTS[0], threshold=0.0)
+        launches[tag] = {k: v for k, v in counts().items() if v}
+        prof = profile_step(lambda: engine.predict(image, PROMPTS[0]))
+        print(f"merge: int8 tier, {tag} request: {prof['device_ms']:.3f} device ms "
+              f"(torch.profiler), launches {launches[tag]} | {smi}", flush=True)
+    want_a = request_launches(cfg8)
+    want_m = {**want_a, "int8_lora_gemm_wres": 0,
+              "int8_gemm_wres": want_a["int8_gemm_wres"] + want_a["int8_lora_gemm_wres"]}
+    check_launches("merge adapted", {**dict.fromkeys(counts(), 0), **launches["adapted"]}, want_a)
+    check_launches("merge merged", {**dict.fromkeys(counts(), 0), **launches["merged"]}, want_m)
+    del engines, engine
+    torch.cuda.empty_cache()
+    gemm_int8.GEMM_LORA_FUSED = False
+
+
 def small_models(int8: bool = False, **overrides):
     """A config small enough for the CPU, with the heads of the full model
     (ViT 2 x 64, encoder 4 x 32) so the kernels sit on the path: fp32 on the
@@ -3122,6 +3428,9 @@ def main():
     phase_int8_bwd(g)
     # its own generator, as the video phase
     phase_scale_out(torch.Generator(device="cuda").manual_seed(SEED), smi)
+    phase_resize(smi)
+    phase_convert(smi)
+    phase_merge(torch.Generator(device="cuda").manual_seed(SEED), smi)  # its own, as video's
     phase_small_reference()
     phase_small_reference("small-int8", int8=True)
     phase_small_reference("small-bench", int8=True, **BENCH_SMALL)

@@ -5,9 +5,10 @@ JAX engine: scores = sigmoid(pred_logits), threshold filter, cxcywh -> xyxy
 at the original size, masks sigmoid > 0.5, bilinearly resized to the
 original resolution and thresholded again.
 
-``preprocess`` and the mask resize take numpy arrays and use
-``torch.nn.functional.interpolate``; PIL is imported only to read an image
-file or a PIL image, and matplotlib only by ``visualize``.
+The image and mask resizes are PIL's ``BILINEAR``, as the JAX engine runs
+them on the host, computed on the engine's device pixel for pixel
+(``ops/interpolate.py::resize_pil_bilinear``); PIL is imported only to read
+an image file or a PIL image, and matplotlib only by ``visualize``.
 
 Adapter hot swap: ``load_adapters`` replaces only the LoRA tensors; the base
 weights stay on the device.
@@ -15,17 +16,18 @@ weights stay on the device.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .config import LoRAConfig, ModelConfig
 
 from .models import Batch, GeoPrompt, build_sam3_image_model, init_model
 from .models.lora import load_lora_weights
 from .models.tokenizer import get_default_tokenizer
+from .ops.interpolate import resize_pil_bilinear
 from .ops.quant import prequantize_model
 from .utils.checkpoint import load_base_checkpoint
 
@@ -34,6 +36,16 @@ IMAGE_MEAN = 0.5
 IMAGE_STD = 0.5
 
 ImageLike = Union[str, np.ndarray, "PIL.Image.Image"]  # noqa: F821
+
+# (v / 255 - mean) / std of every uint8 value v, in float32 as the JAX
+# engine's numpy computes it: looked up, so that every device gives these
+# values (CUDA divides by a scalar as a product with its reciprocal)
+NORMALIZED = (np.arange(256, dtype=np.float32) / 255.0 - IMAGE_MEAN) / IMAGE_STD
+
+
+@functools.lru_cache(maxsize=8)
+def _normalized_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(NORMALIZED).to(device)
 
 
 def _to_array(image: ImageLike) -> np.ndarray:
@@ -51,14 +63,23 @@ def _to_array(image: ImageLike) -> np.ndarray:
 
 
 def resize_masks_to(masks: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """(N, h, w) bool -> (N, H, W) bool, on the masks' device. The JAX engine
-    resizes each mask as 0/255 uint8 with PIL ``BILINEAR`` and keeps > 127.5.
-    This is the same filter (bilinear, widened when shrinking) in one float
-    pass. PIL rounds to uint8 after each of its two passes, so the two
-    disagree only on pixels within one grey level of the threshold."""
-    up = F.interpolate(masks[:, None].float(), size=size, mode="bilinear",
-                       align_corners=False, antialias=True)
-    return up[:, 0] >= 0.5
+    """(N, h, w) bool -> (N, H, W) bool, on the masks' device: the JAX
+    engine's resize, each mask as 0/255 uint8 through PIL ``BILINEAR``,
+    kept where > 127.5."""
+    up = resize_pil_bilinear(masks.to(torch.uint8) * 255, size)
+    return up > 127.5
+
+
+def preprocess_image(image: ImageLike, img_size: int, device: Union[str, torch.device]
+                     ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """-> normalized (1, 3, R, R) float32 on ``device`` and the original
+    (H, W): the JAX engine's preprocess, PIL ``BILINEAR`` to R x R on uint8,
+    then (x / 255 - 0.5) / 0.5 (``NORMALIZED``), the same float32 values.
+    Only the uint8 image crosses to the device."""
+    arr = _to_array(image)
+    x = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    x = resize_pil_bilinear(x, (img_size, img_size), dims=(0, 1))
+    return _normalized_on(x.device)[x.permute(2, 0, 1)[None].long()], arr.shape[:2]
 
 
 def head_outputs(out: Dict[str, Any]):
@@ -124,19 +145,15 @@ class SAM3LoRAInference:
 
     # ------------------------------------------------------------------ #
     def preprocess(self, image: ImageLike) -> Tuple[np.ndarray, Tuple[int, int]]:
-        """-> normalized (1, 3, R, R) float32 and the original (H, W).
-
-        The resize runs on uint8, as the JAX engine's PIL ``BILINEAR`` resize
-        does: antialiased, and rounded to uint8 before the /255. It agrees
-        with PIL to one grey level, on a few percent of the pixels at most."""
-        arr = _to_array(image)
-        orig_h, orig_w = arr.shape[:2]
-        r = self.cfg.img_size
-        x = torch.from_numpy(np.ascontiguousarray(arr)).permute(2, 0, 1)[None]
-        x = F.interpolate(x.contiguous(memory_format=torch.channels_last), size=(r, r),
-                          mode="bilinear", align_corners=False, antialias=True)
-        x = (x.float() / 255.0 - IMAGE_MEAN) / IMAGE_STD
-        return x.contiguous().numpy(), (orig_h, orig_w)
+        """-> normalized (1, 3, R, R) float32 numpy and the original (H, W),
+        equal to the JAX engine's ``preprocess``: ``preprocess_image`` on
+        this engine's device, brought back to the host. ``predict`` and the
+        processor call ``preprocess_image`` and keep the image on the
+        device; this numpy form is for callers that batch frames on the host
+        (the frame-parallel detector's inputs in the tests and in
+        chip_smoke.py)."""
+        x, hw = preprocess_image(image, self.cfg.img_size, self.device)
+        return x.cpu().numpy(), hw
 
     # ------------------------------------------------------------------ #
     def predict(
@@ -154,13 +171,12 @@ class SAM3LoRAInference:
         num_detections}}.
         """
         thr = self.threshold if threshold is None else threshold
-        img, (orig_h, orig_w) = self.preprocess(image)
+        img, (orig_h, orig_w) = preprocess_image(image, self.cfg.img_size, self.device)
         token_ids = self.tokenizer(
             [p.lower() for p in prompts], context_length=self.cfg.text_context_length
         )
         scores, presence, boxes, masks = self._forward(
-            torch.from_numpy(img).to(self.device),
-            torch.from_numpy(np.asarray(token_ids, np.int64)).to(self.device),
+            img, torch.from_numpy(np.asarray(token_ids, np.int64)).to(self.device),
         )
         if use_presence:
             scores = scores * presence[:, None]

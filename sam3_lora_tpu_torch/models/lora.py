@@ -9,7 +9,10 @@ stacked per scanned group (``scan_blocks_{g}.block.*``), as the JAX trainer
 writes them. Loading takes either naming.
 
 For training, ``trainable_parameters`` freezes the base and returns the
-adapters, the only parameters that take a gradient.
+adapters, the only parameters that take a gradient. For serving with no
+adapter cost, ``merge_lora_into_base`` folds the adapters into the base
+weights (the reference's ``merge_weights``); ``lora_module_names`` lists
+the adapted modules under the JAX model's names.
 """
 
 from __future__ import annotations
@@ -91,3 +94,41 @@ def load_lora_weights(model: nn.Module, path: str) -> int:
     if bad:
         raise KeyError(f"not adapter tensors: {bad[:5]}")
     return load_tensors(model, tensors, strict=False)
+
+
+def merge_lora_into_base(model: nn.Module) -> int:
+    """Fold every adapter into its base weight and drop it: W <- W + (B A) *
+    alpha/rank, in fp32, stored in the weight's dtype (the JAX
+    ``merge_lora_into_base``). The layer then runs its plain product: K4,
+    not K5, once ``prequantize_model`` quantizes the merged base. ``weight``
+    and ``lora_b`` hold their rows in the same (``out_perm``) order. An int8
+    (prequantized) weight raises, before anything changes: merge the float
+    base, then quantize. Returns the number of adapters merged."""
+    layers = [(name, m) for name, m in model.named_modules()
+              if isinstance(m, LoRALinear) and m.lora_a is not None]
+    int8 = [name for name, m in layers if m.weight.dtype == torch.int8]
+    if int8:
+        raise ValueError(f"{int8[0]}.weight is int8 (prequantized); merge the adapters before "
+                         "prequantize_model")
+    with torch.no_grad():
+        for _, m in layers:
+            delta = (m.lora_b.float() @ m.lora_a.float()) * m.scaling
+            m.weight.copy_((m.weight.float() + delta).to(m.weight.dtype))
+            m.lora_a = m.lora_b = None
+    return len(layers)
+
+
+def lora_module_names(model: nn.Module) -> List[str]:
+    """The sorted names of the modules that carry adapters, as the JAX
+    ``lora_module_names`` gives them: the windowed ViT blocks under their
+    scanned group (``...trunk.scan_blocks_{g}.block.*``) when the config
+    scans them."""
+    from ..utils.checkpoint import scanned_name
+
+    cfg = model.spec.model
+    names = set()
+    for name, m in model.named_modules():
+        if isinstance(m, LoRALinear) and m.lora_a is not None:
+            scanned = scanned_name(name, cfg) if cfg.vit_scan_blocks else None
+            names.add(name if scanned is None else scanned[0])
+    return sorted(names)

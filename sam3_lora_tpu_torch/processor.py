@@ -11,8 +11,8 @@ thresholds the plain sigmoid; both surfaces are kept.
 The model is built as ``SAM3LoRAInference`` builds it (on CUDA unless the
 caller passes ``device="cpu"``; base checkpoint, adapters, and the int8
 base quantized once when ``base_quant`` asks for it), and the image goes
-through its preprocess: the same tensor ``predict`` feeds the model, with
-no PIL for an array.
+through its preprocess (``inference.py::preprocess_image``, on the device):
+the same tensor ``predict`` feeds the model, with no PIL for an array.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .config import LoRAConfig, ModelConfig
-from .inference import ImageLike, SAM3LoRAInference, head_outputs
+from .inference import ImageLike, SAM3LoRAInference, head_outputs, preprocess_image
 from .models import Batch, GeoPrompt
 
 
@@ -50,8 +50,8 @@ class Sam3Processor:
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def set_image(self, image: ImageLike) -> "Sam3Processor":
-        img, orig_size = self.engine.preprocess(image)
-        feats, poss = self.model.backbone_image(torch.from_numpy(img).to(self.device))
+        img, orig_size = preprocess_image(image, self.cfg.img_size, self.device)
+        feats, poss = self.model.backbone_image(img)
         self._state = {"feats": feats, "poss": poss, "orig_size": orig_size}
         return self
 

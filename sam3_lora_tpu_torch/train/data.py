@@ -8,7 +8,7 @@ resized with the image and area-downsampled to ``mask_loss_resolution``,
 boxes normalized to cxcywh, and the category-aware query text. Targets pad
 to ``max_targets`` slots with validity masks.
 
-The datapoint schema and the eval transform are the port's own
+The datapoint schema and the transform pipelines are the port's own
 (``train/transforms.py``), as is the COCO segmentation decoder
 (``ops/rle.py``). PIL is imported only by the functions that decode or
 write images.
@@ -94,9 +94,9 @@ def pad_targets(query: Optional["T.Query"], cfg: ModelConfig, r: int):
 class COCOSegmentDataset:
     """Reads ``<data_dir>/<split>/_annotations.coco.json`` (Roboflow layout).
     ``transforms`` is an optional datapoint pipeline, a callable
-    ``(Datapoint, RandomState) -> Datapoint`` ending at CHW (as the JAX
-    package's ``train/transforms.py`` pipelines do); by default images are
-    resized only."""
+    ``(Datapoint, RandomState) -> Datapoint`` ending at CHW, such as
+    ``train/transforms.py::train_transforms`` (the augmentations); by
+    default images are resized only."""
 
     def __init__(
         self,

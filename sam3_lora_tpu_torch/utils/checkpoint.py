@@ -113,20 +113,32 @@ def scan_groups(cfg):
     return groups
 
 
+def scanned_name(name: str, cfg):
+    """A ViT name ``...trunk.blocks.{i}.*`` of a windowed block -> (its
+    scanned JAX name ``...trunk.scan_blocks_{g}.block.*``, its index j in
+    group g); None for every other name (a global block's included)."""
+    m = _TRUNK_BLOCK.match(name)
+    if m is None:
+        return None
+    where = {i: (g, j) for g, (run, _) in enumerate(scan_groups(cfg)) for j, i in enumerate(run)}
+    if int(m.group(2)) not in where:
+        return None
+    g, j = where[int(m.group(2))]
+    return f"{m.group(1)}scan_blocks_{g}.block.{m.group(3)}", j
+
+
 def stack_scanned(flat: Dict[str, np.ndarray], cfg) -> Dict[str, np.ndarray]:
     """Flat JAX-layout arrays named ``...trunk.blocks.{i}.*`` -> the scanned
     naming of the JAX ViT (``...trunk.scan_blocks_{g}.block.*``, the windowed
     run of group g stacked on a leading axis); global blocks keep their
     names."""
-    where = {i: (g, j) for g, (run, _) in enumerate(scan_groups(cfg)) for j, i in enumerate(run)}
     out, stacks = {}, {}
     for name, arr in flat.items():
-        m = _TRUNK_BLOCK.match(name)
-        if m is None or int(m.group(2)) not in where:
+        scanned = scanned_name(name, cfg)
+        if scanned is None:
             out[name] = arr
-            continue
-        g, j = where[int(m.group(2))]
-        stacks.setdefault(f"{m.group(1)}scan_blocks_{g}.block.{m.group(3)}", {})[j] = arr
+        else:
+            stacks.setdefault(scanned[0], {})[scanned[1]] = arr
     for name, parts in stacks.items():
         out[name] = np.stack([parts[j] for j in sorted(parts)])
     return out
@@ -225,6 +237,39 @@ def jax_axes(module: nn.Module, leaf: str, ndim: int) -> tuple:
     return tuple(range(ndim))
 
 
+def _base_leaves(model: nn.Module):
+    """(JAX name, module, leaf, parameter) of every base parameter (not the
+    adapters, not the int8 tier's ``weight_scale``), unscanned: ``weight``
+    of a linear or conv named ``kernel``, as the JAX modules name it."""
+    for mod_name, module in model.named_modules():
+        for leaf, p in module.named_parameters(recurse=False):
+            if leaf in ("lora_a", "lora_b", "weight_scale"):
+                continue
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            if leaf == "weight" and isinstance(module, (LoRALinear, Conv2d)):
+                name = name[: -len("weight")] + "kernel"
+            yield name, module, leaf, p
+
+
+def base_param_shapes(model: nn.Module) -> Dict[str, tuple]:
+    """{JAX name: JAX-layout shape} of every array ``base_params_to_jax``
+    writes (the scanned groups stacked when the config scans them), from
+    the parameters' shapes alone: no tensor is read, so a model on the
+    ``meta`` device will do. The shapes a reference checkpoint converts to
+    (``cli/convert_checkpoint.py``)."""
+    cfg = model.spec.model
+    out: Dict[str, tuple] = {}
+    for name, module, leaf, p in _base_leaves(model):
+        shape = tuple(p.shape[a] for a in jax_axes(module, leaf, p.ndim))
+        scanned = scanned_name(name, cfg) if cfg.vit_scan_blocks else None
+        if scanned is None:
+            out[name] = shape
+        else:
+            depth = out.get(scanned[0], (0,))[0]
+            out[scanned[0]] = (max(depth, scanned[1] + 1),) + shape
+    return out
+
+
 def base_params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
     """Every base parameter (not the adapters, not the int8 tier's
     ``weight_scale``) as flat JAX-named numpy arrays: ``weight`` back to
@@ -233,26 +278,19 @@ def base_params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
     scans them, bf16 widened to fp32. A prequantized (int8) weight raises:
     save the float base, and quantize after loading."""
     out = {}
-    for mod_name, module in model.named_modules():
-        unperm = None
-        if isinstance(module, LoRALinear) and module.out_perm is not None:
+    for name, module, leaf, p in _base_leaves(model):
+        if p.dtype == torch.int8:
+            raise ValueError(f"{name} is int8 (prequantized); save the model before "
+                             "prequantize_model")
+        t = p.detach().cpu()
+        if isinstance(module, LoRALinear) and module.out_perm is not None and leaf in ("weight",
+                                                                                       "bias"):
             unperm = torch.empty_like(module.out_perm)
             unperm[module.out_perm] = torch.arange(len(module.out_perm))
-        for leaf, p in module.named_parameters(recurse=False):
-            if leaf in ("lora_a", "lora_b", "weight_scale"):
-                continue
-            name = f"{mod_name}.{leaf}" if mod_name else leaf
-            if p.dtype == torch.int8:
-                raise ValueError(f"{name} is int8 (prequantized); save the model before "
-                                 "prequantize_model")
-            t = p.detach().cpu()
-            if unperm is not None and leaf in ("weight", "bias"):
-                t = t[unperm]  # rows are the output channels
-            t = t.permute(jax_axes(module, leaf, t.ndim))
-            if leaf == "weight" and isinstance(module, (LoRALinear, Conv2d)):
-                name = name[: -len("weight")] + "kernel"
-            out[name] = np.ascontiguousarray(t.float().numpy() if t.dtype == torch.bfloat16
-                                             else t.numpy())
+            t = t[unperm]  # rows are the output channels
+        t = t.permute(jax_axes(module, leaf, t.ndim))
+        out[name] = np.ascontiguousarray(t.float().numpy() if t.dtype == torch.bfloat16
+                                         else t.numpy())
     cfg = model.spec.model
     return stack_scanned(out, cfg) if cfg.vit_scan_blocks else out
 

@@ -1029,3 +1029,21 @@ def test_video_train_step_on_the_card(gen, tmp_path):
     chip_smoke.live_adapters(model, gen)
     res = chip_smoke.video_train_step(model, cfg, clip, "cuda")
     chip_smoke.check_video_train("video-train", cfg, res)
+
+
+@pytest.mark.parametrize("hw, size", [((900, 1200), (1008, 1008)), ((1080, 1920), (1008, 1008)),
+                                      ((288, 288), (900, 1200))])
+def test_pil_resize_on_the_card_equals_the_cpu(gen, hw, size):
+    """``resize_pil_bilinear`` (the serving path's image and mask resize)
+    and ``preprocess_image`` on the card equal their CPU runs, which equal
+    PIL and the JAX engine (test_torch_inference.py)."""
+    from sam3_lora_tpu_torch.inference import preprocess_image
+    from sam3_lora_tpu_torch.ops.interpolate import resize_pil_bilinear
+
+    image = torch.randint(0, 256, (*hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    got = resize_pil_bilinear(image, size, dims=(0, 1))
+    assert got.is_cuda and torch.equal(got.cpu(), resize_pil_bilinear(image.cpu(), size,
+                                                                      dims=(0, 1)))
+    x, _ = preprocess_image(image.cpu().numpy(), size[0], "cuda")
+    assert x.is_cuda and torch.equal(x.cpu(), preprocess_image(image.cpu().numpy(), size[0],
+                                                               "cpu")[0])

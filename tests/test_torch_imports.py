@@ -1,12 +1,13 @@
 """The PyTorch port imports nothing of JAX or Flax, and nothing of the JAX
 package (``sam3_lora_tpu``), serving and training alike: the machine with
 the GPU has no use for them, and the port keeps its own copies of what it
-needs (config, tokenizer, datapoint transforms, the RLE codec and its C++
+needs (config, tokenizer, the RLE codec and its C++
 source, the image evaluators, ``cli/prepare_data.py``, ``interactive.py``,
 ``io_utils.py``, ``eval/video_eval.py``, ``HostShard`` and
 ``filesystem_gather``, ``train/video_data.py``, ``eval/saco_veval.py``,
 ``viz.py``, ``agent.py``, ``agent_tools.py`` with its prompt corpus,
-``agent_helpers.py`` and ``utils/instantiate.py``)."""
+``agent_helpers.py``, ``utils/instantiate.py``, the augmentation pipeline
+``train/transforms.py`` and the checkpoint converter's tables)."""
 
 import os
 import subprocess
@@ -53,6 +54,10 @@ CODE = (
     "import sam3_lora_tpu_torch.utils.instantiate as ui\n"
     "ui.instantiate({'_target_': 'sam3_lora_tpu_torch.config.LoRAConfig', 'rank': 2})\n"
     "from sam3_lora_tpu_torch.ops.cc import sample_point_from_error_region\n"
+    "import sam3_lora_tpu_torch.cli.convert_checkpoint, sam3_lora_tpu_torch.train.transforms\n"
+    "import sam3_lora_tpu_torch.cli.check_text_encoding, sam3_lora_tpu_torch.cli.analyze_loss\n"
+    "import sam3_lora_tpu_torch.cli.verify_gt_transforms, sam3_lora_tpu_torch.ops.interpolate\n"
+    "from sam3_lora_tpu_torch.models.lora import merge_lora_into_base, lora_module_names\n"
     "import chip_smoke\n"
     "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'sam3_lora_tpu')]\n"
     "assert not bad, bad\n"

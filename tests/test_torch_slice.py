@@ -113,10 +113,10 @@ def test_inference_forward_matches_jax(tiny):
 
 def test_predict_matches_jax(tiny, monkeypatch):
     """``predict`` end to end, both engines on the same weights and uint8
-    image. At this image size the two resizes give identical input, so
-    scores and boxes hold to TOL (boxes scaled by the image side). The masks
-    go through a float resize here and PIL's uint8 one there, and may differ
-    only on pixels at the threshold (test_torch_inference.py): at most 1%."""
+    image. The two resizes give identical input (test_torch_inference.py),
+    so scores and boxes hold to TOL (boxes scaled by the image side). The
+    masks are resized as PIL resizes them, and may differ only where a
+    low-resolution probability lies at the 0.5 threshold: at most 1%."""
     from sam3_lora_tpu import inference as jax_inference
 
     cfg, _, _, params, flat, _ = tiny

@@ -22,10 +22,9 @@ config, fp32 on both sides.
   on, and without propagation. Each frame's live ids, output masks and
   every discrete state field equal; scores, mask logits, memory banks and
   pointers within 2e-4 (the processor-level tolerance). The frames are
-  40x60, the processor test's shape: there the port's uint8 resize
-  (``inference.py::preprocess``) gives PIL's pixels, where at other shapes
-  it may differ by one grey level on a few percent of them, which moves
-  the random tiny model's scores by up to ~4e-3.
+  40x60, the processor test's shape; the port's resize
+  (``inference.py::preprocess_image``) gives PIL's pixels at every shape
+  (``test_torch_inference.py``).
 
 The JAX results of the tracker stages and the grounder runs are stored in
 ``tests/data/torch_ref_video.npz`` (the JAX grounder jits for ~10 s a
