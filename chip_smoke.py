@@ -168,7 +168,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    built from the file against one quantized directly (one
                    request bit for bit); (e) a trace_span among one profiled
                    step's events, MemMeter's peak equal to
-                   max_memory_allocated.
+                   max_memory_allocated; (f) the sharded frozen base
+                   (parallel.shard_params_ by param_shardings(...,
+                   shard_base=True)) in the int8 tier at batch 4, one
+                   update's forward and backward through train_step and the
+                   group's mean gradient, after a warm-up update: (f1) in an
+                   NCCL group of 1, the base "sharded" over one rank, bit for
+                   bit the unsharded step, the same launches
+                   (train_step_launches), the gathers in the forward and in
+                   the backward; (f2) two gloo ranks on the one card
+                   (``--fsdp-rank``), 2 images each, the reduced gradients
+                   bit for bit the same ranks' unsharded step, each rank's
+                   resident parameter bytes the rule's count, its peak
+                   memory below unsharded, and its step's host s.
  19. resize      - the serving path's PIL-exact resizes on the card: three
                    uint8 images (480x640, 900x1200, 1080x1920) to 1008^2
                    byte for byte PIL's, preprocess equal to (PIL / 255 -
@@ -280,7 +292,7 @@ from sam3_lora_tpu_torch.processor import Sam3Processor
 from sam3_lora_tpu_torch.train.data import DataLoader, Sample
 from sam3_lora_tpu_torch.train.losses import compute_losses
 from sam3_lora_tpu_torch.train.prefetch import batch_to_device
-from sam3_lora_tpu_torch.train.trainer import Trainer
+from sam3_lora_tpu_torch.train.trainer import Trainer, train_step
 from sam3_lora_tpu_torch.ops.association import associate_det_trk
 from sam3_lora_tpu_torch.ops.cc import connected_components
 from sam3_lora_tpu_torch.tracking_predictor import Sam3TrackerPredictor
@@ -2595,9 +2607,11 @@ def scale_out_rank(base: str) -> None:
     print(f"scale-out rank {rank}: done", flush=True)
 
 
-def run_ranks(base: str) -> list:
-    """SCALE_RANKS processes of ``scale_out_rank`` on the one card; raises if
-    any fails or outlasts SCALE_RANK_TIMEOUT_S."""
+def run_ranks(base: str, flag: str = "--scale-out-rank", name: str = "rank",
+              tag: str = "(b)") -> list:
+    """SCALE_RANKS processes of this script with ``flag`` (``scale_out_rank``,
+    or ``fsdp_rank``) on the one card; each rank's ``<base>/<name><r>.pt``.
+    Raises if any fails or outlasts SCALE_RANK_TIMEOUT_S."""
     import sys
 
     port = free_port()
@@ -2606,7 +2620,7 @@ def run_ranks(base: str) -> list:
         env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
                "WORLD_SIZE": str(SCALE_RANKS), "RANK": str(r), "LOCAL_RANK": "0"}
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--scale-out-rank", base], env=env,
+            [sys.executable, os.path.abspath(__file__), flag, base], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs, failed = [], []
     try:
@@ -2626,8 +2640,8 @@ def run_ranks(base: str) -> list:
         if p.returncode != 0:
             failed.append(f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
     if failed:
-        raise AssertionError("scale-out (b): " + "\n".join(failed))
-    return [torch.load(os.path.join(base, f"rank{r}.pt")) for r in range(SCALE_RANKS)]
+        raise AssertionError(f"scale-out {tag}: " + "\n".join(failed))
+    return [torch.load(os.path.join(base, f"{name}{r}.pt")) for r in range(SCALE_RANKS)]
 
 
 def split_reference(cfg: ModelConfig, loader) -> dict:
@@ -2753,6 +2767,175 @@ def scale_out_checkpoint(base: str) -> dict:
     os.remove(path)
     return {"arrays": n, "bytes": size, "save_s": save_s, "load_s": load_s, "differ": differ,
             "int8_equal": int8_equal}
+
+
+def fsdp_config() -> ModelConfig:
+    return scale_out_config().replace(base_quant="int8")
+
+
+def param_bytes(model: torch.nn.Module) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def fsdp_trainer(cfg: ModelConfig, loader, out_dir: str):
+    """A Trainer at ``cfg`` with LORA, set up (the base prequantized), live
+    adapters drawn from a generator seeded SEED, the scorer's dropout off;
+    and the loader's first batch on the card."""
+    trainer = Trainer(cfg, LORA, TrainConfig(batch_size=loader.bs, seed=SEED, output_dir=out_dir),
+                      device="cuda")
+    trainer.setup(steps_per_epoch=1)
+    live_adapters(trainer.model, torch.Generator(device="cuda").manual_seed(SEED))
+    trainer.model.dot_prod_scoring.prompt_mlp.drop.rate = 0.0
+    return trainer, batch_to_device(next(iter(loader.epoch(0))), "cuda")
+
+
+def fsdp_update(trainer, batch) -> dict:
+    """One update's forward and backward (``train_step``) and the group's
+    mean gradient (``all_reduce_mean_``), as ``Trainer.train_step`` runs
+    them: the losses and gradients on the host, the launches, the gathers
+    in the forward and the backward, the peak bytes and the host s."""
+    from sam3_lora_tpu_torch.parallel import dist_utils, fsdp
+
+    model = trainer.model
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fsdp.GATHERS.update(forward=0, backward=0)
+    t0 = time.perf_counter()
+    losses = train_step(model, batch, trainer.loss_cfg)
+    dist_utils.all_reduce_mean_([p.grad for p in trainer.trainable])
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    return {"losses": {k: v.float().cpu() for k, v in losses.items()},
+            "grads": [p.grad.float().cpu() for p in trainer.trainable],
+            "launches": counts(), "gathers": dict(fsdp.GATHERS),
+            "peak": torch.cuda.max_memory_allocated(), "host_s": host_s,
+            "bytes": param_bytes(model)}
+
+
+def shard_base(model: torch.nn.Module):
+    """Place the base by JAX's rule over the group's data axis
+    (``shard_params_``); -> (leaves split, the bytes the rule leaves this
+    rank, counted before the placement)."""
+    from sam3_lora_tpu_torch.parallel import make_mesh, param_shardings, shard_params_
+    from sam3_lora_tpu_torch.parallel.mesh import DATA_AXIS
+
+    mesh = make_mesh()
+    shardings = param_shardings(model, mesh, shard_base=True)
+    n = mesh.shape[DATA_AXIS]
+    predicted = sum(p.numel() * p.element_size() // (n if DATA_AXIS in shardings[k].spec else 1)
+                    for k, p in model.named_parameters())
+    split = shard_params_(model, shardings)
+    torch.cuda.empty_cache()
+    return split, predicted
+
+
+def same_update(a: dict, b: dict) -> bool:
+    return (all(torch.equal(a["losses"][k], b["losses"][k]) for k in a["losses"])
+            and all(torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])))
+
+
+def fsdp_rank(base: str) -> None:
+    """One rank of scale-out (f2), run as ``chip_smoke.py --fsdp-rank
+    <dir>`` with the group's environment: gloo over CUDA tensors on the one
+    card, SCALE_BATCH / SCALE_RANKS images of the first batch, a warm-up
+    update, one update unsharded, then the base sharded by JAX's rule and
+    the same update; what it saw goes to ``<dir>/fsdp<r>.pt``."""
+    from sam3_lora_tpu_torch.parallel import multihost
+
+    if not multihost.initialize(backend="gloo"):
+        raise SystemExit("fsdp rank: no process group in the environment")
+    rank = multihost.process_index()
+    try:
+        cfg = fsdp_config()
+        loader = DataLoader(SyntheticSamples(cfg, SCALE_BATCH, SEED), SCALE_BATCH // SCALE_RANKS,
+                            shuffle=False, num_workers=2, host_shard=multihost.host_shard())
+        trainer, batch = fsdp_trainer(cfg, loader, os.path.join(base, f"fsdp_out{rank}"))
+        fsdp_update(trainer, batch)  # the warm-up
+        plain = fsdp_update(trainer, batch)
+        split, predicted = shard_base(trainer.model)
+        sharded = fsdp_update(trainer, batch)
+        torch.save({"plain": plain, "sharded": sharded, "split": split, "predicted": predicted},
+                   os.path.join(base, f"fsdp{rank}.pt"))
+    finally:
+        multihost.shutdown()
+    print(f"fsdp rank {rank}: done", flush=True)
+
+
+def scale_out_fsdp(base: str, smi: str) -> list:
+    """(f): the sharded frozen base in the int8 tier (module docstring,
+    phase 18). Returns the failures."""
+    from sam3_lora_tpu_torch.parallel import multihost
+
+    cfg = fsdp_config()
+    failed = []
+    loader = DataLoader(SyntheticSamples(cfg, SCALE_BATCH, SEED), SCALE_BATCH, shuffle=False,
+                        num_workers=2)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    try:
+        if not multihost.initialize() or torch.distributed.get_backend() != "nccl":
+            raise AssertionError("scale-out (f1): no NCCL group of 1")
+        trainer, batch = fsdp_trainer(cfg, loader, os.path.join(base, "fsdp_one"))
+        fsdp_update(trainer, batch)  # the warm-up
+        plain = fsdp_update(trainer, batch)
+        split, predicted = shard_base(trainer.model)
+        sharded = fsdp_update(trainer, batch)
+        del trainer, batch
+    finally:
+        multihost.shutdown()
+        for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(var)
+    torch.cuda.empty_cache()
+    want = with_rope(train_step_launches(cfg))
+    want = {**dict.fromkeys(plain["launches"], 0), **want}
+    exact = same_update(plain, sharded)
+    print(f"scale-out (f1): NCCL group of 1, int8 tier, batch {SCALE_BATCH}, {split} base leaves "
+          f"placed by param_shardings(shard_base=True) over 1 rank: losses and gradients bit for "
+          f"bit the unsharded update's {exact}; gathers {sharded['gathers']['forward']} in the "
+          f"forward, {sharded['gathers']['backward']} in the backward; launches sharded "
+          f"{ {k: v for k, v in sharded['launches'].items() if v} } (unsharded equal "
+          f"{sharded['launches'] == plain['launches']}, the design's {plain['launches'] == want}); "
+          f"host s {sharded['host_s']:.3f} vs {plain['host_s']:.3f}; peak "
+          f"{sharded['peak'] / 2**30:.3f} vs {plain['peak'] / 2**30:.3f} GiB; {smi}", flush=True)
+    if not exact:
+        failed.append("(f1) the sharded update differs from the unsharded one")
+    if not sharded["launches"] == plain["launches"] == want:
+        failed.append(f"(f1) launches {sharded['launches']} vs unsharded {plain['launches']}, "
+                      f"design {want}")
+    if split != 365 or sharded["bytes"] != predicted or not sharded["gathers"]["backward"]:
+        failed.append(f"(f1) {split} leaves split (want 365), {sharded['bytes']} B resident "
+                      f"(rule {predicted}), gathers {sharded['gathers']}")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(base, "--fsdp-rank", "fsdp", "(f2)")
+    wall = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(ranks[0]["sharded"]["grads"],
+                                                 ranks[1]["sharded"]["grads"]))
+    print(f"scale-out (f2): {SCALE_RANKS} gloo ranks on one card in {wall:.1f} s, "
+          f"{SCALE_BATCH // SCALE_RANKS} images each, int8 tier; the reduced gradients equal "
+          f"across ranks {same}; {smi}", flush=True)
+    if not same:
+        failed.append("(f2) the ranks' reduced gradients differ")
+    for r, res in enumerate(ranks):
+        p, s_ = res["plain"], res["sharded"]
+        exact = same_update(p, s_)
+        print(f"scale-out (f2) rank {r}: {res['split']} leaves split; reduced losses and "
+              f"gradients bit for bit the unsharded ranks' {exact}; resident parameter bytes "
+              f"{s_['bytes']} sharded, {res['predicted']} by the rule, {p['bytes']} unsharded; "
+              f"max_memory_allocated {s_['peak']} B sharded vs {p['peak']} B unsharded "
+              f"({(s_['peak'] - p['peak']) / 2**20:+.1f} MiB); step host s {s_['host_s']:.3f} "
+              f"sharded vs {p['host_s']:.3f} unsharded; gathers {s_['gathers']}; {smi}",
+              flush=True)
+        if not exact:
+            failed.append(f"(f2) rank {r}: the sharded update differs from the unsharded one")
+        if s_["bytes"] != res["predicted"] or res["split"] != 365:
+            failed.append(f"(f2) rank {r}: {s_['bytes']} B resident, the rule's {res['predicted']}"
+                          f" ({res['split']} leaves split)")
+        if not s_["peak"] < p["peak"]:
+            failed.append(f"(f2) rank {r}: peak {s_['peak']} B not below unsharded {p['peak']} B")
+    return failed
 
 
 def phase_scale_out(g: torch.Generator, smi: str):
@@ -2907,6 +3090,9 @@ def phase_scale_out(g: torch.Generator, smi: str):
                           f"(first {ck['differ'][:3]})")
         if not ck["int8_equal"]:
             failed.append("(d) the int8 engine built from the file differs")
+
+        # (f) the sharded frozen base, in a group of 1 and in two gloo ranks
+        failed += scale_out_fsdp(base, smi)
     print(f"scale-out: {smi}", flush=True)
     if failed:
         raise AssertionError("scale-out: " + "; ".join(failed))
@@ -3388,6 +3574,8 @@ def main():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     if sys.argv[1:2] == ["--scale-out-rank"]:  # one rank of the scale-out phase's (b)
         return scale_out_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--fsdp-rank"]:  # one rank of the scale-out phase's (f2)
+        return fsdp_rank(sys.argv[2])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

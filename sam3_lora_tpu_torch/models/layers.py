@@ -38,6 +38,7 @@ from ..ops.attention import dot_product_attention, merge_heads, split_heads
 from ..ops.long_attention import long_attention_packed
 from ..ops.quant import int8_lora_matmul_prequant, int8_matmul, int8_matmul_prequant
 from ..ops.rpb_attention import separable_bias_attention
+from ..parallel import fsdp
 
 
 class DropoutRNG:
@@ -242,7 +243,12 @@ class LoRALinear(nn.Module):
     runs before the frozen product and is added after the bias. With ``GEMM_LORA_FUSED`` on, an int8 weight with an
     adapter of rank % 8 == 0 (in eval, or with LoRA dropout 0) takes the
     fused product (K5), and the bias is added after the fused sum.
+
+    ``weight`` may be sharded (``parallel.shard_params_``): it is gathered
+    where it is used (``parallel/fsdp.py``).
     """
+
+    SHARDED_AT_USE = ("weight",)
 
     def __init__(
         self,
@@ -297,8 +303,8 @@ class LoRALinear(nn.Module):
         x = x.to(dt)
         bias = None if self.bias is None else self.bias.to(dt)
         if self._fused():
-            y = int8_lora_matmul_prequant(x, self.weight, self.weight_scale, self.lora_a,
-                                          self.lora_b, self.scaling)
+            y = int8_lora_matmul_prequant(x, fsdp.full(self, "weight"), self.weight_scale,
+                                          self.lora_a, self.lora_b, self.scaling)
             return y if bias is None else y + bias
         # The adapter branch runs before the frozen product, which saves its
         # operands for the backward before it computes (F.linear) or saves
@@ -316,13 +322,14 @@ class LoRALinear(nn.Module):
             h = F.linear(xin, self.lora_a.to(dt))
             delta = F.linear(h.float(), self.lora_b.to(dt).float()) * self.scaling
         if self.weight_scale is None:
-            y = F.linear(x, self.weight.to(dt), bias)
+            y = F.linear(x, fsdp.full(self, "weight", dt), bias)
         else:
             bwd_int8 = self.spec.model.base_quant == "int8_bwd"
-            if self.weight.dtype == torch.int8:
-                y = int8_matmul_prequant(x, self.weight, self.weight_scale, bwd_int8)
+            w = fsdp.full(self, "weight")
+            if w.dtype == torch.int8:
+                y = int8_matmul_prequant(x, w, self.weight_scale, bwd_int8)
             else:
-                y = int8_matmul(x, self.weight, bwd_int8)
+                y = int8_matmul(x, w, bwd_int8)
             if bias is not None:
                 y = y + bias
         return y if delta is None else y + delta.to(y.dtype)
@@ -366,7 +373,10 @@ class GroupNorm(nn.Module):
 
 class Conv2d(nn.Module):
     """Conv2d over (B, C, H, W), torch weight layout (out, in/groups, kh, kw).
-    ``trunc_std`` replaces the default uniform init (the ViT patch embed)."""
+    ``trunc_std`` replaces the default uniform init (the ViT patch embed).
+    ``weight`` may be sharded, and is gathered at use."""
+
+    SHARDED_AT_USE = ("weight",)
 
     def __init__(
         self,
@@ -400,7 +410,7 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.spec.dtype
         return F.conv2d(
-            x.to(dt), self.weight.to(dt),
+            x.to(dt), fsdp.full(self, "weight", dt),
             None if self.bias is None else self.bias.to(dt),
             stride=self.stride, padding=self.padding, groups=self.groups,
         )
@@ -424,7 +434,11 @@ class MultiHeadAttention(nn.Module):
     for short sequences; in-loop on the probabilities of the separable-bias
     path; on the attention *output* where both sequences are long (the fused
     path never forms the probabilities).
+
+    ``in_proj_weight`` may be sharded, and is gathered at use.
     """
+
+    SHARDED_AT_USE = ("in_proj_weight",)
 
     def __init__(self, embed_dim: int, num_heads: int, spec: Spec, dropout: float = 0.0):
         super().__init__()
@@ -450,7 +464,7 @@ class MultiHeadAttention(nn.Module):
         separable_bias=None,  # (dy (B,Lq,GH,H), dx (B,Lq,GW,H), (GH, GW))
     ) -> torch.Tensor:
         d, dt = self.embed_dim, self.spec.dtype
-        w = self.in_proj_weight.to(dt)
+        w = fsdp.full(self, "in_proj_weight", dt)
         b = self.in_proj_bias.to(dt)
         q = F.linear(query.to(dt), w[:d], b[:d])
         k = F.linear(key.to(dt), w[d:2 * d], b[d:2 * d])
@@ -531,7 +545,10 @@ class MLP(nn.Module):
 
 
 class Embedding(nn.Module):
-    """torch nn.Embedding (weight named 'weight'), normal init."""
+    """torch nn.Embedding (weight named 'weight'), normal init. ``weight``
+    may be sharded, and is gathered at use."""
+
+    SHARDED_AT_USE = ("weight",)
 
     def __init__(self, num: int, features: int, spec: Spec, std: float = 1.0):
         super().__init__()
@@ -543,5 +560,5 @@ class Embedding(nn.Module):
 
     def forward(self, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         if ids is None:
-            return self.weight.to(self.spec.dtype)
-        return self.weight[ids].to(self.spec.dtype)
+            return fsdp.full(self, "weight", self.spec.dtype)
+        return fsdp.full(self, "weight")[ids].to(self.spec.dtype)

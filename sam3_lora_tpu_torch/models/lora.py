@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from ..config import LoRAConfig
 
+from ..parallel import fsdp
 from .layers import LoRALinear
 
 LORA_LEAF_NAMES = ("lora_a", "lora_b")
@@ -103,7 +104,9 @@ def merge_lora_into_base(model: nn.Module) -> int:
     not K5, once ``prequantize_model`` quantizes the merged base. ``weight``
     and ``lora_b`` hold their rows in the same (``out_perm``) order. An int8
     (prequantized) weight raises, before anything changes: merge the float
-    base, then quantize. Returns the number of adapters merged."""
+    base, then quantize. A sharded weight (``parallel.shard_params_``) takes
+    its slice of the adapters' product, so it holds its slice of the merged
+    weight, with no collective. Returns the number of adapters merged."""
     layers = [(name, m) for name, m in model.named_modules()
               if isinstance(m, LoRALinear) and m.lora_a is not None]
     int8 = [name for name, m in layers if m.weight.dtype == torch.int8]
@@ -113,6 +116,9 @@ def merge_lora_into_base(model: nn.Module) -> int:
     with torch.no_grad():
         for _, m in layers:
             delta = (m.lora_b.float() @ m.lora_a.float()) * m.scaling
+            shard = fsdp.shard_of(m, "weight")
+            if shard is not None:
+                delta = fsdp.local(shard, delta)
             m.weight.copy_((m.weight.float() + delta).to(m.weight.dtype))
             m.lora_a = m.lora_b = None
     return len(layers)

@@ -15,11 +15,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.posenc import sine_pos_grid
+from ..parallel import fsdp
 from .layers import Conv2d, Spec, max_pool_2x2, uniform_
 
 
 class ConvTranspose2x2(nn.Module):
-    """torch ConvTranspose2d(k=2, s=2); weight (in, out, 2, 2)."""
+    """torch ConvTranspose2d(k=2, s=2); weight (in, out, 2, 2), which may be
+    sharded and is gathered at use."""
+
+    SHARDED_AT_USE = ("weight",)
 
     def __init__(self, in_ch: int, features: int, spec: Spec):
         super().__init__()
@@ -34,7 +38,8 @@ class ConvTranspose2x2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.spec.dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=2)
+        return F.conv_transpose2d(x.to(dt), fsdp.full(self, "weight", dt), self.bias.to(dt),
+                                  stride=2)
 
 
 class NeckLevel(nn.Module):

@@ -49,6 +49,10 @@ class Transformer(nn.Module):
 
 
 class TextTransformer(nn.Module):
+    # text_projection is read by no forward: sharded, it is gathered only by
+    # the writers (utils/checkpoint.py)
+    SHARDED_AT_USE = ("text_projection",)
+
     def __init__(self, spec: Spec):
         super().__init__()
         cfg = spec.model

@@ -54,6 +54,7 @@ from ..ops.attention import dot_product_attention, merge_heads
 from ..ops.long_attention import long_attention_packed_qkv, long_attention_rope_packed_qkv
 from ..ops.rope import apply_rope_half, compute_axial_freqs, rope_half_perm
 from ..ops.windows import window_partition, window_unpartition
+from ..parallel import fsdp
 from .layers import Conv2d, DropPath, LayerNorm, LoRALinear, Spec, checkpoint, trunc_normal_
 
 REMAT_POLICIES = ("full", "block_mid", "windows_only", "wo_block_mid")
@@ -211,7 +212,10 @@ class Block(nn.Module):
 
 
 class ViT(nn.Module):
-    """(B, 3, R, R) image -> final stride-14 feature map (B, C, R/14, R/14)."""
+    """(B, 3, R, R) image -> final stride-14 feature map (B, C, R/14, R/14).
+    ``pos_embed`` may be sharded, and is gathered at use."""
+
+    SHARDED_AT_USE = ("pos_embed",)
 
     def __init__(self, spec: Spec):
         super().__init__()
@@ -238,7 +242,7 @@ class ViT(nn.Module):
         cfg = self.spec.model
         feat = cfg.feat_size
         pre = cfg.vit_pretrain_img_size // cfg.patch_size
-        grid = self.pos_embed[:, 1:].reshape(1, pre, pre, cfg.vit_dim)
+        grid = fsdp.full(self, "pos_embed")[:, 1:].reshape(1, pre, pre, cfg.vit_dim)
         if cfg.vit_tile_abs_pos:
             reps = (feat + pre - 1) // pre
             return grid.repeat(1, reps, reps, 1)[:, :feat, :feat]

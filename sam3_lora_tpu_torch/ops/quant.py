@@ -35,6 +35,12 @@ fold into dy (fp32), its rows are quantized, the contraction with W_q over N
 runs in int32 (``torch._int_mm`` on the card, an exact sum on the CPU) and is
 scaled by the row scales. This perturbs the adapter gradients by dy's
 quantization; the fused adapter Function keeps the bf16 dx, as in JAX.
+
+A weight gathered from a sharded base (``parallel/fsdp.py``) is held on
+``ctx`` as ``fsdp.pack(w)``, the recipe to gather it again in the backward,
+so that the whole weight does not live from the forward to the backward.
+``prequantize_model`` quantizes a sharded weight whole: each output row's
+scale is taken over the whole row, as GSPMD takes it.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import fsdp
 from . import gemm_int8, remat
 from .gemm_int8 import dequantize, quant_rows
 
@@ -108,13 +115,13 @@ class _Int8Matmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bwd_int8):
-        ctx.w = w.detach()
+        ctx.w = fsdp.pack(w.detach())
         ctx.bwd_int8 = bwd_int8
-        return _apply(x, *quantize_weight(ctx.w))
+        return _apply(x, *quantize_weight(w.detach()))
 
     @staticmethod
     def backward(ctx, dy):
-        return _dx(dy, *quantize_weight(ctx.w), ctx.bwd_int8), None, None
+        return _dx(dy, *quantize_weight(fsdp.unpack(ctx.w)), ctx.bwd_int8), None, None
 
 
 class _Int8MatmulPrequant(torch.autograd.Function):
@@ -127,13 +134,13 @@ class _Int8MatmulPrequant(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, wq, ws, bwd_int8):
-        ctx.wq, ctx.ws = wq, ws
+        ctx.wq, ctx.ws = fsdp.pack(wq), ws
         ctx.bwd_int8 = bwd_int8
         return _apply(x, wq, ws)
 
     @staticmethod
     def backward(ctx, dy):
-        return _dx(dy, ctx.wq, ctx.ws, ctx.bwd_int8), None, None, None
+        return _dx(dy, fsdp.unpack(ctx.wq), ctx.ws, ctx.bwd_int8), None, None, None
 
 
 class _Int8LoRAMatmulPrequant(torch.autograd.Function):
@@ -149,13 +156,13 @@ class _Int8LoRAMatmulPrequant(torch.autograd.Function):
         lead = x.shape[:-1]
         y = gemm_int8.int8_lora_gemm_wres(x.reshape(-1, x.shape[-1]), wq, ws,
                                           la.detach().to(dt), lb.detach().to(dt), scale)
-        ctx.wq, ctx.ws, ctx.token, ctx.scale = wq, ws, token, scale
+        ctx.wq, ctx.ws, ctx.token, ctx.scale = fsdp.pack(wq), ws, token, scale
         return y.reshape(*lead, wq.shape[0])
 
     @staticmethod
     def backward(ctx, dy):
         x, la, lb = remat.saved(ctx.token)
-        wq, ws, scale = ctx.wq, ctx.ws, ctx.scale
+        wq, ws, scale = fsdp.unpack(ctx.wq), ctx.ws, ctx.scale
         dt = dy.dtype
         n, k = wq.shape
         dyf = dy.reshape(-1, n)
@@ -201,17 +208,23 @@ def prequantize_model(model: nn.Module, min_dim: int = 512) -> int:
     (``prequantize_base``/``prequantize_tree`` of the JAX package): a layer
     with a ``weight_scale`` (the config's quant gate covers it), a float 2-D
     weight and ``min(N, K) >= min_dim`` gets an int8 ``weight`` parameter and
-    its scale. Adapters are untouched. Returns the number quantized."""
+    its scale. Adapters are untouched. Returns the number quantized.
+
+    A sharded weight (``parallel.shard_params_``) is gathered, quantized
+    whole and sliced again, so every rank of its data group must call this;
+    the int8 weight keeps the float one's placement, the scale is whole."""
     from ..models.layers import LoRALinear
 
     n = 0
     for m in model.modules():
         if not isinstance(m, LoRALinear) or m.weight_scale is None:
             continue
-        w = m.weight
-        if w.dim() != 2 or min(w.shape) < min_dim or w.dtype == torch.int8:
+        if m.weight.dtype == torch.int8 or min(m.features, m.in_features) < min_dim:
             continue
-        wq, ws = quantize_weight(w.detach())
+        wq, ws = quantize_weight(fsdp.full(m, "weight").detach())
+        shard = fsdp.shard_of(m, "weight")
+        if shard is not None:
+            wq = fsdp.local(shard, wq)
         m.weight = nn.Parameter(wq, requires_grad=False)
         with torch.no_grad():
             m.weight_scale.copy_(ws)

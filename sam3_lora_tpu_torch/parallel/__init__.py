@@ -9,7 +9,8 @@ from .dist_utils import (
     is_main_process,
 )
 from .frame_parallel import FrameParallelDetector
-from .mesh import batch_sharding, make_mesh, param_shardings, replicated, shard_batch
+from .mesh import (batch_sharding, make_mesh, param_shardings, replicated, shard_batch,
+                   shard_params_)
 
 __all__ = [
     "make_mesh",
@@ -17,6 +18,7 @@ __all__ = [
     "replicated",
     "shard_batch",
     "param_shardings",
+    "shard_params_",
     "get_rank",
     "get_world_size",
     "is_main_process",

@@ -8,19 +8,26 @@ tensor axis is split over which mesh axis, and the training step's
 collectives are written out (``train/losses.py``, ``train/trainer.py``).
 
 ``param_shardings(shard_base=True)`` gives JAX's placement rule for each
-parameter in the port's (torch) layout. Executing a sharded base (gathering
-each weight at use) is not ported: the JAX ``Trainer`` never asks for it.
+parameter in the port's (torch) layout, and ``shard_params_`` places a model
+so, as ``jax.device_put`` of those shardings does: each rank keeps only its
+slice of every base weight the rule splits, and each module gathers the
+whole weight over the rank's data group where it uses it
+(``parallel/fsdp.py``). The training step and its one all-reduce of the
+adapters' gradients run on it unchanged: the adapters stay replicated and
+the base takes no gradient, so nothing is reduce-scattered.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from . import fsdp
 from .multihost import process_count, process_index
 
 DATA_AXIS = "data"
@@ -138,3 +145,51 @@ def param_shardings(model: nn.Module, mesh: Mesh, shard_base: bool = False) -> D
                     out[name] = Sharding(mesh, tuple(spec))
                     break
     return out
+
+
+def data_groups(mesh: Mesh) -> List[List[int]]:
+    """The ranks of each data group, by model index: the ranks that share a
+    model index, in data order (the slices of a sharded weight)."""
+    return [mesh.ranks[:, m].tolist() for m in range(mesh.ranks.shape[1])]
+
+
+def shard_params_(model: nn.Module, shardings: Dict[str, Sharding]) -> int:
+    """Place ``model`` by ``shardings`` (``param_shardings``' names): every
+    parameter split over the data axis keeps only this rank's slice, its
+    index the rank's data coordinate, and takes no gradient; its module
+    gathers it over the rank's data group at use (``parallel/fsdp.py``).
+    Every rank of the process group must call this, in the same order as
+    its other collectives: it makes one group per model index
+    (``torch.distributed.new_group``). A module that cannot gather the leaf
+    raises, before anything changes. Returns the number of parameters
+    sharded."""
+    split = {name: s for name, s in shardings.items() if DATA_AXIS in s.spec}
+    if not split:
+        return 0
+    mesh = next(iter(split.values())).mesh
+    if any(s.mesh is not mesh for s in split.values()):
+        raise ValueError("the shardings name more than one mesh")
+    n = mesh.shape[DATA_AXIS]
+    owners = []
+    for name, s in split.items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        dim = s.spec.index(DATA_AXIS)
+        if leaf not in getattr(owner, "SHARDED_AT_USE", ()):
+            raise ValueError(f"{name}: {type(owner).__name__} does not gather {leaf!r} at use")
+        if fsdp.shard_of(owner, leaf) is not None:
+            raise ValueError(f"{name} is sharded already")
+        if getattr(owner, leaf).shape[dim] % n:
+            raise ValueError(f"{name}: axis {dim} does not split over {n} ranks")
+        owners.append((owner, leaf, dim))
+    if not dist.is_initialized():
+        raise RuntimeError("shard_params_ needs a process group: the slices are gathered at use")
+    groups = [dist.new_group(ranks) for ranks in data_groups(mesh)]
+    d, m = mesh.coords(process_index())
+    for owner, leaf, dim in owners:
+        shard = fsdp.Shard(dim, n, d, groups[m])
+        setattr(owner, leaf, nn.Parameter(fsdp.local(shard, getattr(owner, leaf).detach()),
+                                          requires_grad=False))
+        fsdp.mark(owner, leaf, shard)
+    fsdp.install(model)
+    return len(owners)

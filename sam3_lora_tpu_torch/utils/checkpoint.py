@@ -55,6 +55,7 @@ import torch
 import torch.nn as nn
 
 from ..models.layers import Conv2d, LoRALinear
+from ..parallel import fsdp
 
 _SCAN = re.compile(r"^(?:(.*)\.)?scan_blocks_(\d+)\.block\.(.*)$")
 
@@ -276,13 +277,15 @@ def base_params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
     ``kernel`` where the bridge renamed it, the transposes undone, the qkv
     permutation unfolded, the scanned ViT groups stacked when the config
     scans them, bf16 widened to fp32. A prequantized (int8) weight raises:
-    save the float base, and quantize after loading."""
+    save the float base, and quantize after loading. A sharded leaf
+    (``parallel.shard_params_``) is gathered and written whole, so every
+    rank of its data group must call this."""
     out = {}
     for name, module, leaf, p in _base_leaves(model):
         if p.dtype == torch.int8:
             raise ValueError(f"{name} is int8 (prequantized); save the model before "
                              "prequantize_model")
-        t = p.detach().cpu()
+        t = fsdp.full(module, leaf).detach().cpu()
         if isinstance(module, LoRALinear) and module.out_perm is not None and leaf in ("weight",
                                                                                        "bias"):
             unperm = torch.empty_like(module.out_perm)
@@ -298,7 +301,8 @@ def base_params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
 def save_base_checkpoint(model: nn.Module, path: str) -> int:
     """Write the model's base parameters as the JAX package's flat base
     checkpoint ``.npz`` (``base_params_to_jax``); returns the number of
-    arrays written."""
+    arrays written. On a sharded model every rank of each data group calls
+    it, for the gathers, and each writes the whole base to its ``path``."""
     out = base_params_to_jax(model)
     np.savez(path, **out)
     return len(out)

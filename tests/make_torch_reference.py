@@ -4,7 +4,7 @@ port's whole-model tests (``tests/test_torch_reference.py``):
     JAX_PLATFORMS=cpu python tests/make_torch_reference.py [out_dir] [case ...]
 
 writes ``torch_ref_<case>.npz`` into ``out_dir`` (default ``tests/data``) for
-six cases: the eval forward and the training step, each with the base in
+seven cases: the eval forward and the training step, each with the base in
 fp32 (``base_quant="none"``), in the int8 tier (``base_quant="int8"``,
 ``base_quant_min_dim=16``, the frozen base quantized by the JAX package's
 ``prequantize_tree`` / ``prequantize_base``), and at ``bench.py``'s settings
@@ -17,6 +17,19 @@ quantized and the detection heads are not; their forward runs op by op, see
 case, with LoRA rank 4 (on qkv/fc1/fc2/linear1/linear2 but for the bench
 cases), weights drawn from numpy seed 0 (``torch_port_helpers.fill_params``,
 rounded to bf16 where the base is stored so) and a numpy-seeded batch.
+
+The seventh, ``train_int8_fsdp`` (``tests/test_torch_fsdp.py``), is the
+training step of the int8 tier with the frozen base sharded, as
+``tests/test_quant.py``'s multichip step composes it: the parameters placed
+by ``param_shardings(..., shard_base=True)`` on the (4, 2) mesh of the 8
+CPU devices, then the frozen base prequantized, over 8 images and 8 prompts
+(one an image) in two microbatches of 4 (accumulation 2), each on the mesh
+by ``shard_batch``; the losses and gradients are the means of the two
+microbatches'. It also holds the same step with each microbatch replicated
+on the mesh (``replicated/``): in the int8 tier, splitting the batch moves
+some activations by an int8 step in JAX's jitted program (see
+``tests/test_torch_fsdp.py``). The script gives JAX its 8 CPU devices before
+importing it.
 
 Each file holds what the port needs to rebuild the inputs without JAX and
 the outputs to compare: ``params`` (a JSON list of [name, shape] in draw
@@ -38,6 +51,9 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.dirname(HERE))
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
@@ -56,6 +72,7 @@ from sam3_lora_tpu.models.geometry import GeoPrompt  # noqa: E402
 from sam3_lora_tpu.models.sam3_image import Batch, Targets  # noqa: E402
 from sam3_lora_tpu.models.tokenizer import get_default_tokenizer  # noqa: E402
 from sam3_lora_tpu.ops.quant import prequantize_base  # noqa: E402
+from sam3_lora_tpu.parallel import make_mesh, param_shardings, replicated, shard_batch  # noqa: E402
 from sam3_lora_tpu.train import trainer as jax_trainer  # noqa: E402
 from sam3_lora_tpu.train.losses import LossConfig, compute_losses  # noqa: E402
 
@@ -78,7 +95,10 @@ CASES = {  # name -> (training step, config overrides)
     "train_int8": (True, QUANT),
     "eval_bench": (False, BENCH),
     "train_bench": (True, BENCH),
+    "train_int8_fsdp": (True, QUANT),
 }
+FSDP_ACCUM, FSDP_IMAGES = 2, 8  # two microbatches of 4: one image a data index
+FSDP_PROMPTS = ("crack", "a small dog", "tree", "wall", "stain", "rust", "a red car", "leaf")
 
 
 def case_config(name: str):
@@ -116,6 +136,67 @@ def make_batch(cfg, with_targets: bool) -> dict:
     return arrays
 
 
+def make_fsdp_batch(cfg) -> dict:
+    """Numpy arrays of the sharded step's batch: FSDP_IMAGES images, one
+    prompt each (``img_ids`` 0..7), box prompts with padding, padded
+    targets with at least one box a prompt."""
+    rng = np.random.RandomState(1)
+    n, r, t, m = FSDP_IMAGES, cfg.img_size, cfg.max_targets, cfg.mask_loss_resolution
+    valid = rng.uniform(size=(n, t)) < 0.5
+    valid[:, 0] = True
+    boxes = np.concatenate([rng.uniform(0.25, 0.75, (n, t, 2)), rng.uniform(0.1, 0.4, (n, t, 2))],
+                           -1).astype(np.float32) * valid[..., None]
+    geo_mask = rng.uniform(size=(n, 2)) < 0.5
+    return {
+        "images": rng.standard_normal((n, 3, r, r)).astype(np.float32),
+        "token_ids": np.asarray(get_default_tokenizer()(
+            list(FSDP_PROMPTS), context_length=cfg.text_context_length)),
+        "img_ids": np.arange(n, dtype=np.int32),
+        "geo_boxes": (rng.uniform(0.2, 0.8, (n, 2, 4)) * ~geo_mask[..., None]).astype(np.float32),
+        "geo_mask": geo_mask,
+        "geo_labels": rng.randint(0, 2, (n, 2)).astype(np.int32),
+        "boxes": boxes, "valid": valid, "masks": rng.uniform(size=(n, t, m, m)) < 0.3,
+        "mask_valid": valid & (rng.uniform(size=(n, t)) < 0.8),
+        "is_exhaustive": rng.uniform(size=n) < 0.5,
+    }
+
+
+def fsdp_step(jm, cfg, params, arrays: dict) -> dict:
+    """The sharded step's mean losses and gradients (module docstring):
+    ``loss/``, ``grad/`` with each microbatch split over the data axis, as
+    ``tests/test_quant.py`` places it; ``replicated/loss/``,
+    ``replicated/grad/`` with the same base placement and each microbatch
+    whole on every device."""
+    mesh = make_mesh(n_devices=8, model_parallel=2)
+    per = FSDP_IMAGES // FSDP_ACCUM
+    rng = jax.random.PRNGKey(1)
+
+    def loss_fn(trainable, frozen, jb):
+        o = jm.apply({"params": jax_trainer.merge_trainable(trainable, frozen)}, jb, train=True,
+                     rngs={"dropout": rng})
+        losses = compute_losses(o, jb.targets, LossConfig())
+        return losses["core_loss"], losses
+
+    loss_and_grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    total = {}
+    with mesh:
+        params = jax.device_put(params, param_shardings(params, mesh, shard_base=True))
+        trainable, frozen = jax_trainer.split_trainable(params)
+        frozen = prequantize_base(frozen, min_dim=cfg.base_quant_min_dim)
+        for i in range(FSDP_ACCUM):
+            mb = {k: v[i * per:(i + 1) * per] for k, v in arrays.items()}
+            mb["img_ids"] = np.arange(per, dtype=np.int32)
+            for prefix, place in (("", shard_batch),
+                                  ("replicated/", lambda b, m: jax.device_put(b, replicated(m)))):
+                (_, losses), grads = loss_and_grad(trainable, frozen, place(jax_batch(mb), mesh))
+                for k, v in losses.items():
+                    total[f"{prefix}loss/{k}"] = total.get(f"{prefix}loss/{k}", 0) + np.asarray(v)
+                for k, v in grads.items():
+                    key = f"{prefix}grad/{'.'.join(k)}"
+                    total[key] = total.get(key, 0) + np.asarray(v)
+    return {k: v / FSDP_ACCUM for k, v in total.items()}
+
+
 def jax_batch(arrays: dict) -> Batch:
     J = jnp.asarray
     targets = None
@@ -149,6 +230,16 @@ def reference(name: str) -> dict:
         {p: jnp.asarray(flat[".".join(p)]).astype(dtypes[p].dtype) for p, _ in specs})
     trainable, frozen = jax_trainer.split_trainable(params)
     out = {"params": np.asarray(json.dumps([[".".join(p), list(s)] for p, s in specs]))}
+    if name.endswith("fsdp"):
+        arrays = make_fsdp_batch(cfg)
+        out.update({f"in/{k}": v for k, v in arrays.items()})
+        orig = jax_scoring.MLP
+        jax_scoring.MLP = _mlp_without_dropout
+        try:
+            out.update(fsdp_step(build_sam3_image_model(cfg, lora=lora), cfg, params, arrays))
+        finally:
+            jax_scoring.MLP = orig
+        return out
     if cfg.base_quant != "none":
         quantized = prequantize_base(frozen, min_dim=cfg.base_quant_min_dim)
         if not train:  # the leaves prequantize_base changed, for the bridge's test

@@ -3,15 +3,14 @@
 The JAX side is built with ``jax.eval_shape`` (no random-init compile) and
 filled with numpy random values from a seed; the same flat '.'-joined dict
 goes through the port's weight bridge, so both packages run the same
-weights.
+weights. JAX is imported where it is used: a worker process of the port's
+tests draws the weights without it.
 """
 
 from __future__ import annotations
 
-import jax
 import numpy as np
 import torch
-from flax import traverse_util
 
 
 def _fill(name: str, shape, rng: np.random.RandomState) -> np.ndarray:
@@ -32,6 +31,9 @@ def _fill(name: str, shape, rng: np.random.RandomState) -> np.ndarray:
 def param_specs(module, *args, **kwargs):
     """The parameters of ``module.init`` as (path tuple, shape) pairs, in
     the order ``fill_params`` draws them."""
+    import jax
+    from flax import traverse_util
+
     shapes = jax.eval_shape(
         lambda: module.init({"params": jax.random.PRNGKey(0)}, *args, **kwargs)
     )["params"]
@@ -47,6 +49,9 @@ def fill_params(specs, seed: int = 0):
 
 def random_jax_params(module, *args, seed: int = 0, **kwargs):
     """-> (params pytree for ``module.apply``, flat '.'-joined numpy dict)."""
+    import jax
+    from flax import traverse_util
+
     specs = param_specs(module, *args, **kwargs)
     flat = fill_params(specs, seed)
     params = traverse_util.unflatten_dict(
@@ -58,6 +63,8 @@ def jax_apply(module, params, *args, **kwargs):
     """``module.apply`` under ``jax.jit`` (one compile instead of one per
     eager op); non-array arguments (ints, tuples of ints, flags) are closed
     over as constants."""
+    import jax
+
     leaves, treedef = jax.tree_util.tree_flatten((args, kwargs))
     is_arr = [isinstance(x, (jax.Array, np.ndarray)) for x in leaves]
 
