@@ -30,6 +30,7 @@ from .models.tokenizer import get_default_tokenizer
 from .ops.interpolate import resize_pil_bilinear
 from .ops.quant import prequantize_model
 from .utils.checkpoint import load_base_checkpoint
+from .utils.logging import to_device, to_host, trace_span
 
 # the production normalization of the JAX data pipeline (train/data.py)
 IMAGE_MEAN = 0.5
@@ -77,7 +78,7 @@ def preprocess_image(image: ImageLike, img_size: int, device: Union[str, torch.d
     then (x / 255 - 0.5) / 0.5 (``NORMALIZED``), the same float32 values.
     Only the uint8 image crosses to the device."""
     arr = _to_array(image)
-    x = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    x = to_device(torch.from_numpy(np.ascontiguousarray(arr)), device, "image")
     x = resize_pil_bilinear(x, (img_size, img_size), dims=(0, 1))
     return _normalized_on(x.device)[x.permute(2, 0, 1)[None].long()], arr.shape[:2]
 
@@ -170,44 +171,48 @@ class SAM3LoRAInference:
         scale, scores (N,), masks (N, H, W) bool at the original size,
         num_detections}}.
         """
-        thr = self.threshold if threshold is None else threshold
-        img, (orig_h, orig_w) = preprocess_image(image, self.cfg.img_size, self.device)
-        token_ids = self.tokenizer(
-            [p.lower() for p in prompts], context_length=self.cfg.text_context_length
-        )
-        scores, presence, boxes, masks = self._forward(
-            img, torch.from_numpy(np.asarray(token_ids, np.int64)).to(self.device),
-        )
-        if use_presence:
-            scores = scores * presence[:, None]
-        scores, boxes = scores.cpu().numpy(), boxes.cpu().numpy()
+        with trace_span("sam3.predict"):
+            thr = self.threshold if threshold is None else threshold
+            with trace_span("sam3.preprocess"):
+                img, (orig_h, orig_w) = preprocess_image(image, self.cfg.img_size, self.device)
+                token_ids = self.tokenizer(
+                    [p.lower() for p in prompts], context_length=self.cfg.text_context_length
+                )
+                token_ids = to_device(torch.from_numpy(np.asarray(token_ids, np.int64)),
+                                      self.device, "tokens")
+            with trace_span("sam3.forward"):
+                scores, presence, boxes, masks = self._forward(img, token_ids)
+            with trace_span("sam3.post"):
+                if use_presence:
+                    scores = scores * presence[:, None]
+                scores, boxes = to_host(scores, "scores").numpy(), to_host(boxes, "boxes").numpy()
 
-        results: Dict[int, Any] = {}
-        for qi, prompt in enumerate(prompts):
-            keep = scores[qi] > thr
-            n = int(keep.sum())
-            if n == 0:
-                results[qi] = {
-                    "prompt": prompt, "boxes": None, "scores": None,
-                    "masks": None, "num_detections": 0,
-                }
-                continue
-            cx, cy, w, h = boxes[qi][keep].T
-            xyxy = np.stack(
-                [(cx - w / 2) * orig_w, (cy - h / 2) * orig_h,
-                 (cx + w / 2) * orig_w, (cy + h / 2) * orig_h],
-                axis=-1,
-            )
-            m = masks[qi][torch.from_numpy(keep).to(masks.device)] > 0.5  # (N, mr, mr)
-            if resize_masks:
-                m = resize_masks_to(m, (orig_h, orig_w))
-            results[qi] = {
-                "prompt": prompt,
-                "boxes": xyxy,
-                "scores": scores[qi][keep],
-                "masks": m.cpu().numpy(),
-                "num_detections": n,
-            }
+                results: Dict[int, Any] = {}
+                for qi, prompt in enumerate(prompts):
+                    keep = scores[qi] > thr
+                    n = int(keep.sum())
+                    if n == 0:
+                        results[qi] = {
+                            "prompt": prompt, "boxes": None, "scores": None,
+                            "masks": None, "num_detections": 0,
+                        }
+                        continue
+                    cx, cy, w, h = boxes[qi][keep].T
+                    xyxy = np.stack(
+                        [(cx - w / 2) * orig_w, (cy - h / 2) * orig_h,
+                         (cx + w / 2) * orig_w, (cy + h / 2) * orig_h],
+                        axis=-1,
+                    )
+                    m = masks[qi][to_device(torch.from_numpy(keep), masks.device, "keep")] > 0.5
+                    if resize_masks:
+                        m = resize_masks_to(m, (orig_h, orig_w))
+                    results[qi] = {
+                        "prompt": prompt,
+                        "boxes": xyxy,
+                        "scores": scores[qi][keep],
+                        "masks": to_host(m, "masks").numpy(),
+                        "num_detections": n,
+                    }
         return results
 
     # ------------------------------------------------------------------ #

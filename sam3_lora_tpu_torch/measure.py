@@ -118,8 +118,7 @@ def profile_step(step_fn: Callable, steps: int = 1) -> dict:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     events = list(prof.events())
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CUDA)
+    spans = device_intervals(events, DeviceType.CUDA)
     if not spans or sum(b - a for a, b, _ in spans) <= 0:
         raise RuntimeError("the profiler recorded no device time")
     kernels = {}
@@ -131,6 +130,57 @@ def profile_step(step_fn: Callable, steps: int = 1) -> dict:
     return {"kernels": dict(sorted(kernels.items(), key=lambda kv: -kv[1][0])),
             "device_ms": sum(ms for ms, _ in kernels.values()),
             "window_ms": (t1 - t0) / 1e3, "busy_share": covered(spans) / (t1 - t0)}
+
+
+def span_cost_us(n: int = 200000, n_traced: int = 20000) -> dict:
+    """Microseconds a ``trace_span`` enter and exit costs on this host:
+    ``off`` with no profiler (NVTX included on a machine with a card),
+    ``on`` under ``torch.profiler`` (CPU, and CUDA activity with a card),
+    ``count`` one counter increment with no profiler,
+    ``record_function_off`` a bare ``record_function`` range with no
+    profiler, what every span cost before the guard, and ``nvtx`` (with a
+    card) an NVTX push and pop, what a span adds under an NVTX tool."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .utils.logging import count, trace_span
+
+    def per_call(fn, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    def span():
+        with trace_span("sam3.cost"):
+            pass
+
+    def bare():
+        with torch.profiler.record_function("sam3.cost"):
+            pass
+
+    def nvtx():
+        torch.cuda.nvtx.range_push("sam3.cost")
+        torch.cuda.nvtx.range_pop()
+
+    out = {"off": per_call(span, n), "count": per_call(lambda: count("span_cost"), n),
+           "record_function_off": per_call(bare, n)}
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        out["nvtx"] = per_call(nvtx, n)
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities):
+        out["on"] = per_call(span, n_traced)
+    return out
+
+
+def device_intervals(events, device_type) -> list:
+    """Sorted (start us, end us, name) of the events of ``device_type`` that
+    are device work (kernels, copies, sets): a host range (a span such as
+    ``sam3.forward``) also shows on the device's timeline under its own name,
+    as a user annotation, and is left out."""
+    host = {e.name for e in events if e.device_type != device_type}
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == device_type and e.name not in host)
 
 
 def covered(spans) -> float:

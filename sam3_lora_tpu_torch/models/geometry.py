@@ -24,6 +24,7 @@ import torch.nn as nn
 from ..ops.boxes import box_cxcywh_to_xyxy
 from ..ops.posenc import encode_boxes, encode_xy
 from ..ops.sampling import grid_sample, roi_align
+from ..utils.logging import to_device
 from .fusion_encoder import EncoderLayer
 from .layers import Conv2d, Embedding, LayerNorm, LoRALinear, Spec
 from .tracker import SimpleMaskEncoder
@@ -107,7 +108,8 @@ class GeometryEncoder(nn.Module):
 
         boxes = prompt.boxes
         direct = self.boxes_direct_project(boxes)
-        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=boxes.device)
+        scale = to_device(torch.tensor([w, h, w, h], dtype=torch.float32), boxes.device,
+                          "geo_scale")
         pooled = roi_align(feats_grid.float(), box_cxcywh_to_xyxy(boxes) * scale, output_size=r)
         pooled = self.boxes_pool_project(pooled.reshape(b * p, d, r, r)).reshape(b, p, d)
         cx, cy, ww, hh = boxes.unbind(-1)

@@ -32,6 +32,7 @@ import torch.nn as nn
 
 from ..ops.boxes import box_cxcywh_to_xyxy
 from ..train.matcher import hungarian_match, one_to_many_match
+from ..utils.logging import trace_span
 from .decoder import TransformerDecoder
 from .fusion_encoder import TransformerEncoderFusion
 from .geometry import GeometryEncoder, GeoPrompt
@@ -145,39 +146,40 @@ class Sam3Image(nn.Module):
             return out
 
         n_layers = hs.shape[0]
-        if apply_dac:
-            out["pred_logits_o2m"] = logits[:, :, nq:]
-            out["pred_boxes_o2m"] = coords[:, :, nq:]
-            out["pred_boxes_xyxy_o2m"] = box_cxcywh_to_xyxy(coords[:, :, nq:])
-            # one exact solve for the o2o matchings of every layer and the aux
-            # o2m matchings of layers 0..L-2; the last o2m layer is top-k
-            n_prob = 2 * n_layers - 1
-            idx = hungarian_match(
-                torch.cat([out["pred_logits"], out["pred_logits_o2m"][:-1]]),
-                torch.cat([out["pred_boxes"], out["pred_boxes_o2m"][:-1]]),
-                tgt.boxes.expand(n_prob, *tgt.boxes.shape),
-                tgt.valid.expand(n_prob, *tgt.valid.shape),
-            )
-            out["indices"] = idx[:n_layers]                   # (L, B, T)
-            k = cfg.o2m_topk
-            aux_qi = idx[n_layers:]                           # (L-1, B, T)
-            aux_qv = (aux_qi >= 0) & tgt.valid
-            aux_qi = torch.cat([aux_qi.clamp(min=0)[..., None],
-                                aux_qi.new_zeros(*aux_qi.shape, k - 1)], dim=-1)
-            aux_qv = torch.cat([aux_qv[..., None], aux_qv.new_zeros(*aux_qv.shape, k - 1)],
-                               dim=-1)
-            last_qi, last_qv = one_to_many_match(
-                out["pred_logits_o2m"][-1], out["pred_boxes_o2m"][-1],
-                tgt.boxes, tgt.valid, topk=k,
-            )
-            out["o2m_indices"] = torch.cat([aux_qi, last_qi[None]])  # (L, B, T, K)
-            out["o2m_valid"] = torch.cat([aux_qv, last_qv[None]])
-        else:
-            out["indices"] = hungarian_match(
-                out["pred_logits"], out["pred_boxes"],
-                tgt.boxes.expand(n_layers, *tgt.boxes.shape),
-                tgt.valid.expand(n_layers, *tgt.valid.shape),
-            )
+        with trace_span("sam3.match"):
+            if apply_dac:
+                out["pred_logits_o2m"] = logits[:, :, nq:]
+                out["pred_boxes_o2m"] = coords[:, :, nq:]
+                out["pred_boxes_xyxy_o2m"] = box_cxcywh_to_xyxy(coords[:, :, nq:])
+                # one exact solve for the o2o matchings of every layer and the aux
+                # o2m matchings of layers 0..L-2; the last o2m layer is top-k
+                n_prob = 2 * n_layers - 1
+                idx = hungarian_match(
+                    torch.cat([out["pred_logits"], out["pred_logits_o2m"][:-1]]),
+                    torch.cat([out["pred_boxes"], out["pred_boxes_o2m"][:-1]]),
+                    tgt.boxes.expand(n_prob, *tgt.boxes.shape),
+                    tgt.valid.expand(n_prob, *tgt.valid.shape),
+                )
+                out["indices"] = idx[:n_layers]                   # (L, B, T)
+                k = cfg.o2m_topk
+                aux_qi = idx[n_layers:]                           # (L-1, B, T)
+                aux_qv = (aux_qi >= 0) & tgt.valid
+                aux_qi = torch.cat([aux_qi.clamp(min=0)[..., None],
+                                    aux_qi.new_zeros(*aux_qi.shape, k - 1)], dim=-1)
+                aux_qv = torch.cat([aux_qv[..., None], aux_qv.new_zeros(*aux_qv.shape, k - 1)],
+                                   dim=-1)
+                last_qi, last_qv = one_to_many_match(
+                    out["pred_logits_o2m"][-1], out["pred_boxes_o2m"][-1],
+                    tgt.boxes, tgt.valid, topk=k,
+                )
+                out["o2m_indices"] = torch.cat([aux_qi, last_qi[None]])  # (L, B, T, K)
+                out["o2m_valid"] = torch.cat([aux_qv, last_qv[None]])
+            else:
+                out["indices"] = hungarian_match(
+                    out["pred_logits"], out["pred_boxes"],
+                    tgt.boxes.expand(n_layers, *tgt.boxes.shape),
+                    tgt.valid.expand(n_layers, *tgt.valid.shape),
+                )
 
         # the seg head runs on the matched queries only: o2o of the last
         # layer, then (DAC) its o2m matches

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import to_device
+
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int], antialias: bool = False) -> torch.Tensor:
     """x: (..., H, W) -> (..., size), half-pixel bilinear computed in fp32:
@@ -77,7 +79,8 @@ def pil_bilinear_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarr
 @functools.lru_cache(maxsize=64)
 def _taps_on(in_size: int, out_size: int, device: torch.device):
     index, weight = pil_bilinear_taps(in_size, out_size)
-    return torch.tensor(index, device=device), torch.tensor(weight, device=device)
+    return (to_device(torch.tensor(index), device, "resize_taps"),
+            to_device(torch.tensor(weight), device, "resize_taps"))
 
 
 def _pil_pass(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:

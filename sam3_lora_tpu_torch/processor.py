@@ -26,6 +26,7 @@ import torch
 from .config import LoRAConfig, ModelConfig
 from .inference import ImageLike, SAM3LoRAInference, head_outputs, preprocess_image
 from .models import Batch, GeoPrompt
+from .utils.logging import to_device, to_host, trace_span
 
 
 class Sam3Processor:
@@ -50,9 +51,12 @@ class Sam3Processor:
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
     def set_image(self, image: ImageLike) -> "Sam3Processor":
-        img, orig_size = preprocess_image(image, self.cfg.img_size, self.device)
-        feats, poss = self.model.backbone_image(img)
-        self._state = {"feats": feats, "poss": poss, "orig_size": orig_size}
+        with trace_span("sam3.set_image"):
+            with trace_span("sam3.preprocess"):
+                img, orig_size = preprocess_image(image, self.cfg.img_size, self.device)
+            with trace_span("sam3.forward"):
+                feats, poss = self.model.backbone_image(img)
+            self._state = {"feats": feats, "poss": poss, "orig_size": orig_size}
         return self
 
     # ------------------------------------------------------------------ #
@@ -66,7 +70,7 @@ class Sam3Processor:
         n = min(len(boxes), p)
         labels = (np.asarray(box_labels[:n], np.int64) if box_labels is not None
                   else np.ones((n,), np.int64))
-        as_t = lambda a: torch.from_numpy(a)[None].to(self.device)  # noqa: E731
+        as_t = lambda a: to_device(torch.from_numpy(a)[None], self.device, "geo")  # noqa: E731
         return GeoPrompt(
             boxes=as_t(np.pad(np.asarray(boxes[:n], np.float32), ((0, p - n), (0, 0)))),
             mask=as_t(np.arange(p) >= n),
@@ -80,8 +84,14 @@ class Sam3Processor:
         m), as ``SAM3LoRAInference._forward`` gives them."""
         if self._state is None:
             raise RuntimeError("call set_image() first")
+        return self._ground(self._tokens(prompt), geo)
+
+    def _tokens(self, prompt: str) -> torch.Tensor:
         ids = self.tokenizer([prompt.lower()], context_length=self.cfg.text_context_length)
-        token_ids = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
+        return to_device(torch.from_numpy(np.asarray(ids, np.int64)), self.device, "tokens")
+
+    @torch.inference_mode()
+    def _ground(self, token_ids: torch.Tensor, geo: GeoPrompt):
         batch = Batch(images=None, token_ids=token_ids,
                       img_ids=torch.zeros((1,), dtype=torch.long, device=self.device), geo=geo)
         return head_outputs(self.model.ground(self._state["feats"], self._state["poss"], batch))
@@ -102,30 +112,37 @@ class Sam3Processor:
         num_detections."""
         if self._state is None:
             raise RuntimeError("call set_image() first")
-        thr = self.threshold if threshold is None else threshold
-        geo = self.geo_prompt(boxes, box_labels)
-        if mask_prompt is not None:
-            if not self.cfg.geo_mask_prompts:
-                raise ValueError("mask prompts need ModelConfig(geo_mask_prompts=True)")
-            m = torch.from_numpy(np.asarray(mask_prompt, np.float32)).to(self.device)
-            geo = dataclasses.replace(
-                geo, mask_embeddings=m[None, None],
-                mask_mask=torch.zeros((1, 1), dtype=torch.bool, device=self.device),
-                mask_labels=torch.ones((1, 1), dtype=torch.long, device=self.device))
-        scores, presence, boxes_out, masks = self.ground(prompt, geo)
-        pres = float(presence[0])
-        s = scores[0].cpu().numpy() * pres
-        keep = s > thr
-        orig_h, orig_w = self._state["orig_size"]
-        cx, cy, w, h = boxes_out[0].cpu().numpy()[keep].T
-        xyxy = np.stack([(cx - w / 2) * orig_w, (cy - h / 2) * orig_h,
-                         (cx + w / 2) * orig_w, (cy + h / 2) * orig_h], axis=-1)
-        low = masks[0][torch.from_numpy(keep).to(masks.device)] > 0.5
+        with trace_span("sam3.set_text_prompt"):
+            thr = self.threshold if threshold is None else threshold
+            with trace_span("sam3.preprocess"):
+                geo = self.geo_prompt(boxes, box_labels)
+                if mask_prompt is not None:
+                    if not self.cfg.geo_mask_prompts:
+                        raise ValueError("mask prompts need ModelConfig(geo_mask_prompts=True)")
+                    m = to_device(torch.from_numpy(np.asarray(mask_prompt, np.float32)),
+                                  self.device, "mask_prompt")
+                    geo = dataclasses.replace(
+                        geo, mask_embeddings=m[None, None],
+                        mask_mask=torch.zeros((1, 1), dtype=torch.bool, device=self.device),
+                        mask_labels=torch.ones((1, 1), dtype=torch.long, device=self.device))
+                token_ids = self._tokens(prompt)
+            with trace_span("sam3.forward"):
+                scores, presence, boxes_out, masks = self._ground(token_ids, geo)
+            with trace_span("sam3.post"):
+                pres = float(to_host(presence[0], "presence"))
+                s = to_host(scores[0], "scores").numpy() * pres
+                keep = s > thr
+                orig_h, orig_w = self._state["orig_size"]
+                cx, cy, w, h = to_host(boxes_out[0], "boxes").numpy()[keep].T
+                xyxy = np.stack([(cx - w / 2) * orig_w, (cy - h / 2) * orig_h,
+                                 (cx + w / 2) * orig_w, (cy + h / 2) * orig_h], axis=-1)
+                low = masks[0][to_device(torch.from_numpy(keep), masks.device, "keep")] > 0.5
+                low = to_host(low, "masks").numpy()
         return {
             "prompt": prompt,
             "scores": s[keep],
             "boxes": xyxy,
-            "masks_lowres": low.cpu().numpy(),
+            "masks_lowres": low,
             "presence": pres,
             "num_detections": int(keep.sum()),
         }

@@ -33,6 +33,7 @@ from ..models.geometry import GeoPrompt
 from ..models.sam3_image import Batch, Targets
 from ..models.tokenizer import get_default_tokenizer
 from ..ops.rle import segmentation_to_mask
+from ..utils.logging import trace_span
 from . import transforms as T
 
 IMAGE_MEAN = 0.5  # the normalization of a float image, (x / 255 - mean) / std
@@ -296,7 +297,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with trace_span("sam3.data.wait"):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):

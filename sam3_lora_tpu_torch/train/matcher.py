@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import box_cxcywh_to_xyxy, box_iou, generalized_box_iou
+from ..utils.logging import to_device, to_host
 
 
 def matching_cost(
@@ -145,9 +146,10 @@ def hungarian_match(
     device, -1 for invalid targets. The costs and the validity travel to the
     host together, in one copy."""
     cost = matching_cost(pred_logits, pred_boxes, tgt_boxes, **cost_kw).detach()
-    both = torch.cat([cost, tgt_valid[..., None].to(cost.dtype)], dim=-1).cpu().numpy()
+    both = to_host(torch.cat([cost, tgt_valid[..., None].to(cost.dtype)], dim=-1),
+                   "match_cost").numpy()
     idx = solve_assignment(both[..., :-1], both[..., -1] > 0.5)
-    return torch.from_numpy(idx).to(pred_logits.device)
+    return to_device(torch.from_numpy(idx), pred_logits.device, "match_idx")
 
 
 def one_to_many_match(

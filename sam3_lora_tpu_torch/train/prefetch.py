@@ -18,6 +18,8 @@ from typing import Callable, Iterator
 
 import torch
 
+from ..utils.logging import trace_span
+
 
 def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
     """Apply ``fn`` to every tensor of a (nested) dataclass such as ``Batch``."""
@@ -48,7 +50,7 @@ def prefetch_to_device(it: Iterator, device, size: int = 2) -> Iterator:
     buf: collections.deque = collections.deque()
 
     def put(batch):
-        with torch.cuda.stream(copy_stream):
+        with trace_span("sam3.data.pin"), torch.cuda.stream(copy_stream):
             moved = map_tensors(batch, lambda t: t.pin_memory().to(device, non_blocking=True))
             done = torch.cuda.Event()
             done.record(copy_stream)

@@ -40,7 +40,7 @@ from ..models import Batch, build_sam3_image_model, init_model
 from ..models.lora import save_lora_weights, trainable_parameters
 from ..ops.quant import prequantize_model
 from ..parallel import dist_utils, multihost
-from ..utils.logging import MemMeter, TensorBoardLogger
+from ..utils.logging import MemMeter, TensorBoardLogger, trace_span
 from .losses import LossConfig, compute_losses
 from .prefetch import batch_to_device, map_tensors, prefetch_to_device
 
@@ -148,9 +148,12 @@ def train_step(model, batch: Batch, loss_cfg: LossConfig, accum: int = 1) -> Dic
     model.train()
     total: Dict[str, torch.Tensor] = {}
     for mb in split_microbatches(batch, accum):
-        out = model(mb)
-        losses = compute_losses(out, mb.targets, loss_cfg)
-        (losses["core_loss"] / accum).backward()
+        with trace_span("sam3.forward"):
+            out = model(mb)
+        with trace_span("sam3.loss"):
+            losses = compute_losses(out, mb.targets, loss_cfg)
+        with trace_span("sam3.backward"):
+            (losses["core_loss"] / accum).backward()
         for k, v in losses.items():
             total[k] = total.get(k, 0.0) + v.detach() / accum
     return total
@@ -208,20 +211,24 @@ class Trainer:
         # dropout masks from (seed, update, rank): a resumed run draws the same
         # ones, and each rank its own for its own images (rank 0 those of a
         # run without a group)
-        rank = multihost.process_index()
-        self.model.seed_dropout((self.tcfg.seed * 1_000_003 + self.step
-                                 + rank * 7_919_000_003) % 2**62)
-        losses = train_step(self.model, batch, self.loss_cfg,
-                            self.tcfg.gradient_accumulation_steps)
-        # The group's mean gradient: one all-reduce of one flat bucket once
-        # the backward of every microbatch is done, as JAX reduces once an
-        # update. Not DistributedDataParallel: its reducer hooks fire per
-        # parameter inside a backward that replays remat regions
-        # (ops/remat.py, SaveFirst), and accumulation would need no_sync.
-        dist_utils.all_reduce_mean_([p.grad for p in self.trainable if p.grad is not None])
-        apply_update(self.optimizer, self.trainable, self.sched(self.step),
-                     self.tcfg.max_grad_norm)
-        self.step += 1
+        with trace_span("sam3.train_step"):
+            rank = multihost.process_index()
+            self.model.seed_dropout((self.tcfg.seed * 1_000_003 + self.step
+                                     + rank * 7_919_000_003) % 2**62)
+            losses = train_step(self.model, batch, self.loss_cfg,
+                                self.tcfg.gradient_accumulation_steps)
+            with trace_span("sam3.update"):
+                # The group's mean gradient: one all-reduce of one flat bucket
+                # once the backward of every microbatch is done, as JAX reduces
+                # once an update. Not DistributedDataParallel: its reducer hooks
+                # fire per parameter inside a backward that replays remat
+                # regions (ops/remat.py, SaveFirst), and accumulation would
+                # need no_sync.
+                dist_utils.all_reduce_mean_([p.grad for p in self.trainable
+                                             if p.grad is not None])
+                apply_update(self.optimizer, self.trainable, self.sched(self.step),
+                             self.tcfg.max_grad_norm)
+            self.step += 1
         return losses
 
     def _write_stats(self, name: str, record: Dict[str, Any]) -> None:

@@ -6,17 +6,24 @@ PyTorch: ``MemMeter`` the CUDA caching allocator's counters (0 on the CPU),
 ``trace_span`` a ``torch.profiler.record_function`` range (plus an NVTX
 range on the card) and ``capture_trace`` a ``torch.profiler`` trace into a
 directory, where JAX read ``device.memory_stats()`` and wrote XPlane traces.
+
+The program's own tracing (no JAX counterpart): its spans are named
+``sam3.<stage>``; ``count`` / ``counters`` keep its counters, and
+``to_host`` / ``to_device`` are its blocking transfers, each in a span
+``sam3.sync.<site>`` and counted. While a profiler runs, the spans and the
+counters' increments are also recorded (``recorded``) on the profiler's
+clock, for a reader in the same process.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import collections
 import json
 import logging
 import os
 import sys
 import time
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -174,28 +181,92 @@ class TensorBoardLogger:
             self._jsonl.close()
 
 
+SPAN_PREFIX = "sam3."  # the program's spans: sam3.<stage>, sam3.sync.<site>
+
+_COUNTERS: Dict[str, int] = {}
+# what the program did while a profiler ran, for a reader in this process:
+# the spans closed, (name, start ns, end ns), and the counters' increments,
+# (name, ns, n), on ``time.time_ns``, the clock of the profiler's events
+_RECORD_MAX = 1 << 18
+_SPANS: collections.deque = collections.deque(maxlen=_RECORD_MAX)
+_COUNTS: collections.deque = collections.deque(maxlen=_RECORD_MAX)
+# An NVTX range reaches a tool only when one is injected (Nsight Systems sets
+# NVTX_INJECTION64_PATH in the process it launches); without one the two
+# calls go nowhere and cost more than the rest of the span
+_NVTX = bool(os.environ.get("NVTX_INJECTION64_PATH")) and torch.backends.cuda.is_built()
+
+
 class trace_span:
-    """A named range in ``torch.profiler`` traces (``record_function``) and,
-    on a machine with a card, in NVTX; costs a few microseconds when no
-    profiler runs."""
+    """A named range in ``torch.profiler`` traces (``record_function``, only
+    while a profiler runs) and, under an NVTX tool such as ``nsys``, in
+    NVTX. Without either it costs about a microsecond; under a profiler the
+    span is also recorded (``recorded``), its own cost included."""
+
+    __slots__ = ("name", "_rf", "_t0")
 
     def __init__(self, name: str):
         self.name = name
-        self._ctx = None
-        self._nvtx = False
 
     def __enter__(self):
-        self._ctx = torch.profiler.record_function(self.name)
-        self._ctx.__enter__()
-        self._nvtx = torch.cuda.is_available()
-        if self._nvtx:
+        if _NVTX:
             torch.cuda.nvtx.range_push(self.name)
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._t0 = time.time_ns()
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
         return self
 
     def __exit__(self, *exc):
-        if self._nvtx:
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            _SPANS.append((self.name, self._t0, time.time_ns()))
+        if _NVTX:
             torch.cuda.nvtx.range_pop()
-        return self._ctx.__exit__(*exc)
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name`` (always on)."""
+    _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+    if torch.autograd._profiler_enabled():
+        _COUNTS.append((name, time.time_ns(), n))
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the program's counters: ``host_syncs`` (blocking reads and
+    uploads through ``to_host`` / ``to_device``) and ``d2h_bytes``."""
+    return dict(_COUNTERS)
+
+
+def recorded() -> Tuple[List[Tuple[str, int, int]], List[Tuple[str, int, int]]]:
+    """The spans (name, start ns, end ns) closed and the counter increments
+    (name, ns, n) made while a profiler ran, oldest first (the latest
+    2**18 of each)."""
+    return list(_SPANS), list(_COUNTS)
+
+
+def to_host(t: torch.Tensor, site: str) -> torch.Tensor:
+    """``t.cpu()``, a blocking read: in span ``sam3.sync.<site>``, counted in
+    ``host_syncs`` and its bytes in ``d2h_bytes``. An empty tensor copies
+    nothing and waits for nothing: neither spanned nor counted."""
+    if t.numel() == 0:
+        return t.cpu()
+    with trace_span(SPAN_PREFIX + "sync." + site):
+        count("host_syncs")
+        count("d2h_bytes", t.nelement() * t.element_size())
+        return t.cpu()
+
+
+def to_device(x: torch.Tensor, device, site: str) -> torch.Tensor:
+    """``x.to(device)``, a blocking upload (from pageable memory it waits for
+    the stream): in span ``sam3.sync.<site>``, counted in ``host_syncs``;
+    an empty tensor neither spanned nor counted."""
+    if x.numel() == 0:
+        return x.to(device)
+    with trace_span(SPAN_PREFIX + "sync." + site):
+        count("host_syncs")
+        return x.to(device)
 
 
 def capture_trace(log_dir: str):
@@ -207,41 +278,3 @@ def capture_trace(log_dir: str):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     return torch.profiler.profile(
         activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [x for f in dataclasses.fields(tree) for x in _leaves(getattr(tree, f.name))]
-    if tree is None:
-        return []
-    return [tree]
-
-
-def shape_logging_wrapper(fn, name: str = None, logger=None):
-    """Log each novel combination of input shapes and dtypes that the
-    wrapped callable sees (every leaf of its arguments: tensors, arrays, and
-    other values as shape ``()``), the message the JAX package prints."""
-    seen = set()
-    label = name or getattr(fn, "__name__", "fn")
-    out = logger.info if logger else print
-
-    def describe(tree):
-        return tuple(
-            (tuple(getattr(leaf, "shape", ())), str(getattr(leaf, "dtype", type(leaf))))
-            for leaf in _leaves(tree)
-        )
-
-    def wrapped(*args, **kwargs):
-        sig = (describe(args), describe(kwargs))
-        if sig not in seen:
-            seen.add(sig)
-            shapes = [s for s, _ in sig[0]]
-            out(f"[shapes] {label}: novel input combo #{len(seen)}: {shapes}")
-        return fn(*args, **kwargs)
-
-    wrapped.seen_shapes = seen
-    return wrapped

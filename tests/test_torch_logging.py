@@ -1,7 +1,7 @@
 """The port's logging utilities (``sam3_lora_tpu_torch/utils/logging.py``)
 against the JAX package's: the meters and the ``ProgressMeter`` line, the
-JSON-lines fallback of ``TensorBoardLogger`` (line for line), the
-``shape_logging_wrapper`` messages, ``setup_logging``'s handlers; and on the
+JSON-lines fallback of ``TensorBoardLogger`` (line for line),
+``setup_logging``'s handlers; and on the
 CPU ``MemMeter`` reads 0, ``trace_span`` shows by name in a
 ``torch.profiler`` trace and ``capture_trace`` writes one."""
 
@@ -15,8 +15,6 @@ import torch
 
 import sam3_lora_tpu.utils as jax_utils
 import sam3_lora_tpu_torch.utils as port_utils
-from sam3_lora_tpu.utils.logging import shape_logging_wrapper as jax_shape_wrapper
-from sam3_lora_tpu_torch.utils.logging import shape_logging_wrapper
 
 
 def test_exports_equal_jax():
@@ -74,21 +72,6 @@ def test_tensorboard_writer_when_available(tmp_path):
     tb.log("loss", 1.5, step=0)
     tb.close()
     assert any("events" in f for f in os.listdir(tmp_path))
-
-
-def test_shape_logging_wrapper_messages_equal_jax(capsys):
-    messages = []
-    for wrap, arrays in ((shape_logging_wrapper, torch.zeros), (jax_shape_wrapper, np.zeros)):
-        fn = wrap(lambda x, y=None: x.sum(), name="f")
-        a = arrays((2, 3))
-        fn(a)
-        fn(a)
-        fn(arrays((4, 3)), y={"k": arrays((5,))})
-        fn(arrays((4, 3)), y={"k": arrays((6,))})
-        messages.append(capsys.readouterr().out)
-        assert len(fn.seen_shapes) == 3
-    assert messages[0] == messages[1]
-    assert messages[0].count("novel input combo") == 3
 
 
 def test_setup_logging_handlers(tmp_path):
