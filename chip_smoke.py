@@ -31,9 +31,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    K5 line beside the unfused chain (K4, the two adapter
                    products, the add) and K4 of its shape.
   4. slice       - SAM3LoRAInference at the full 848M config (bf16, seeded random
-                   weights, nonzero adapters) answers three requests of 1, 2 and
-                   3 prompts; every output finite and of the right shape; the
-                   launch counters show the requests ran through the kernels.
+                   weights, nonzero adapters): the model's own (eager) forward
+                   of 1, 2 and 3 prompts, then _forward captures its CUDA
+                   graphs (graphs.py: the backbone, a grounding a prompt
+                   count; the launch counters twice the design's a capture,
+                   its host s, the pool's bytes) and replays them, bit for bit
+                   the eager forward, a request's device kernels the eager
+                   one's (the device trace); then three requests of 1, 2 and
+                   3 prompts from the graphs (no entry launches, two replays
+                   a request); every output finite and of the right shape.
   5. slice-int8  - the same with base_quant="int8" and GEMM_LORA_FUSED on: the
                    adapted qkv/fc1/fc2 take K5, proj and the text GEMMs K4;
                    then one request of 1 prompt under torch.profiler: K5's
@@ -64,9 +70,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                    1200x900 image, then PROMPTS[-1] one at a time, the last
                    with a box prompt. set_image launches K1 and K2 (and in
                    the int8 tier K5/K4 in the ViT's GEMMs), each prompt K3
-                   and the text encoder's K4 and no ViT kernel, counts equal
-                   to the design's; one prompt's raw outputs bit for bit
-                   equal to SAM3LoRAInference._forward's on the same image;
+                   and the text encoder's K4 and no ViT kernel (counts the
+                   design's for each graph captured, none for a replay); the
+                   cached features, a text and a box prompt's raw outputs bit
+                   for bit the model's own eager forward's on the same image,
+                   each unit's replayed device kernels the eager ones;
                    the median times (of 3) of set_image, each prompt, and
                    predict of the same prompts one at a time and together;
                    one set_image and one prompt under torch.profiler.
@@ -252,7 +260,7 @@ from sam3_lora_tpu_torch.config import (
 from sam3_lora_tpu_torch.cli.validate import dump_predictions, score_predictions, validate_images
 from sam3_lora_tpu_torch.eval import load_predictions
 from sam3_lora_tpu_torch.inference import (
-    IMAGE_MEAN, IMAGE_STD, SAM3LoRAInference, preprocess_image, resize_masks_to,
+    IMAGE_MEAN, IMAGE_STD, SAM3LoRAInference, head_outputs, preprocess_image, resize_masks_to,
 )
 from sam3_lora_tpu_torch.measure import (
     KERNEL_BWD_RTOL, KERNEL_RTOL, PEAK_BF16, PEAK_INT8, attention_work, median_ms, paired_ms,
@@ -296,6 +304,7 @@ from sam3_lora_tpu_torch.train.trainer import Trainer, train_step
 from sam3_lora_tpu_torch.ops.association import associate_det_trk
 from sam3_lora_tpu_torch.ops.cc import connected_components
 from sam3_lora_tpu_torch.tracking_predictor import Sam3TrackerPredictor
+from sam3_lora_tpu_torch.utils.logging import counters as program_counters
 from sam3_lora_tpu_torch.video import (
     TrackState, VideoGrounder, fill_holes_in_mask_scores, make_tracker_fns, memory_bank,
     video_tracker_core,
@@ -839,12 +848,114 @@ def phase_gemm_kernels(g: torch.Generator):
     return [rows[e.__name__] for e in GEMM_ENTRIES], failed
 
 
+_PROGRAM0: dict = {}
+
+
 def reset_counts():
+    """Every kernel entry's launch counter to 0; the graph cache's counters
+    read from here on (``graph_delta``)."""
+    global _PROGRAM0
     for entry in ATTENTION:
         entry.launches = entry.bwd_launches = 0
     for entry in GEMM_ENTRIES:
         entry.launches = 0
     attention_kernel.rope_cuda.launches = 0
+    _PROGRAM0 = program_counters()
+
+
+def graph_delta() -> dict:
+    """The graph cache's counters since reset_counts (``graphs.py``):
+    ``graph_replays``, ``graph_captures`` and ``graph_captures.<unit>``."""
+    return {k: v - _PROGRAM0.get(k, 0) for k, v in program_counters().items()
+            if k.startswith("graph_")}
+
+
+def served(calls: int, backbone: dict = None, ground: dict = None, delta: dict = None) -> dict:
+    """The launches the kernel entries count for ``calls`` serving calls
+    since reset_counts (or over ``delta``, a graph_delta), each running the
+    units given once: an image's ``backbone``, a ``ground``ing (each the
+    launches of one run, by entry). With a card each unit comes from its
+    graph (``graphs.py``): its launches twice for each graph of the unit
+    captured (the eager warm-up and the capture), none for a replay (the
+    graph launches the kernels, through no entry); without one the calls
+    run them eagerly. Raises unless every unit of every call replayed."""
+    units = {u: v for u, v in (("backbone", backbone), ("ground", ground)) if v is not None}
+    d = graph_delta() if delta is None else delta
+    graphs = torch.cuda.is_available()
+    replays = calls * len(units) if graphs else 0
+    if d.get("graph_replays", 0) != replays:
+        raise AssertionError(f"{d.get('graph_replays', 0)} graph replays, expected {replays}")
+    want = collections.Counter()
+    for unit, design in units.items():
+        runs = 2 * d.get(f"graph_captures.{unit}", 0) if graphs else calls
+        for k, v in design.items():
+            want[k] += runs * v
+    return dict(want)
+
+
+@torch.inference_mode()
+def eager_outputs(engine, images: torch.Tensor, ids: torch.Tensor, geo=None):
+    """``head_outputs`` of the model's own forward (no graph), batched as
+    ``engine._forward`` batches it: one image (1, 3, R, R) under every
+    prompt of ``ids`` (n, T), or image i under prompt i."""
+    n = ids.shape[0]
+    img_ids = (torch.arange if images.shape[0] == n else torch.zeros)(n, dtype=torch.long,
+                                                                      device=ids.device)
+    geo = GeoPrompt.empty(n, engine.cfg.max_prompt_boxes, device=ids.device) if geo is None else geo
+    return head_outputs(engine.model(Batch(images=images, token_ids=ids, img_ids=img_ids,
+                                           geo=geo)))
+
+
+def as_eager(tag: str, got, eager) -> list:
+    """``got`` (raw outputs from the graphs) bit for bit ``eager()``'s, where
+    two eager runs agree bit for bit, else within their own spread; returns
+    the largest differences from the first eager run."""
+    a, b = eager(), eager()
+    diffs = [(g.float() - x.float()).abs().max().item() for g, x in zip(got, a)]
+    for g, x, y, d in zip(got, a, b, diffs):
+        spread = 0.0 if torch.equal(x, y) else (x.float() - y.float()).abs().max().item()
+        if g.shape != x.shape or not (torch.equal(g, x) if spread == 0.0 else d <= spread):
+            raise AssertionError(f"{tag}: replayed outputs differ from the eager forward's by "
+                                 f"{diffs} (eager against itself {spread})")
+    return diffs
+
+
+def device_launches(fn) -> dict:
+    """{kernel name: launches} of ``fn()`` from the device trace."""
+    return {name: n for name, (_, n) in profile_step(fn)["kernels"].items()}
+
+
+# the port's own kernels (csrc/) by the names the profiler gives them
+PORT_KERNELS = ("attention_fwd_kernel", "rope_kernel", "gemm_kernel", "quant_rows_kernel",
+                "lora_prep_kernel", "dequant_t_kernel")
+# traces of a replay taken before one that lacks no kernel counts as a miss:
+# the profiler has dropped a replayed graph's kernel records (2 of 32 once)
+TRACE_TRIES = 3
+
+
+def same_kernels(tag: str, replay, eager) -> int:
+    """``replay()`` (a call from the graphs) launches the port's own kernels
+    (PORT_KERNELS) as ``eager()`` does, name by name and count by count, in
+    one of TRACE_TRIES device traces (cuBLAS and cuDNN may pick other kernels
+    of theirs under capture); returns how many."""
+    def own(fn):
+        return {k: n for k, n in device_launches(fn).items() if any(p in k for p in PORT_KERNELS)}
+
+    want, seen = own(eager), []
+    for _ in range(TRACE_TRIES):
+        seen.append(own(replay))
+        if seen[-1] == want and want:
+            break
+    else:
+        names = set(want).union(*seen)
+        raise AssertionError(f"{tag}: the port's kernels replayed differ from eager's in "
+                             f"{TRACE_TRIES} traces: "
+                             f"{ {k: (want.get(k, 0), [d.get(k, 0) for d in seen]) for k in names} }")
+    if len(seen) > 1:
+        print(f"{tag}: {len(seen) - 1} trace(s) of the replay lacked kernels the next one had: "
+              f"{[sum(d.values()) for d in seen]} against eager's {sum(want.values())}",
+              flush=True)
+    return sum(want.values())
 
 
 def counts():
@@ -910,7 +1021,14 @@ def k5_request_profile(tag: str, request, vit_depth: int) -> dict:
 
 def phase_slice(g: torch.Generator, int8: bool = False):
     """Serving at the full config; with ``int8`` the base is in the int8 tier
-    and GEMM_LORA_FUSED is on. Returns (launches, latencies, peak bytes)."""
+    and GEMM_LORA_FUSED is on. The model's own forward (eager) of each of
+    PROMPTS first; then ``_forward`` captures a graph a unit and prompt
+    count (the launch counters twice the design's for each capture, the
+    capture's host ms, the pool's bytes) and replays them: each bit for bit
+    the eager forward; a replayed request's device kernels the eager one's
+    (the device trace). Then ``predict`` of PROMPTS from the graphs (no
+    entry launches, two replays a request). Returns (launches of the
+    captures, latencies, peak bytes)."""
     tag = "slice-int8" if int8 else "slice"
     gemm_int8.GEMM_LORA_FUSED = int8
     t0 = time.perf_counter()
@@ -921,10 +1039,40 @@ def phase_slice(g: torch.Generator, int8: bool = False):
     n_int8 = sum(p.dtype == torch.int8 for p in engine.model.parameters())
     print(f"{tag}: built {n_params} params ({n_adapters} adapters, {n_int8} int8 weights) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = engine.cfg
+    n_req = len(PROMPTS)
+    backbone, ground = set_image_launches(cfg), prompt_launches(cfg)
 
     image = np.random.RandomState(SEED).randint(0, 256, (900, 1200, 3)).astype(np.uint8)
-    engine.predict(image, ["warm-up"])  # first call: allocator, cuDNN and kernel set-up
+    x = torch.from_numpy(engine.preprocess(image)[0]).cuda()
+    ids = [torch.from_numpy(np.asarray(engine.tokenizer(p, context_length=cfg.text_context_length),
+                                       np.int64)).cuda() for p in PROMPTS]
+    for t in ids:  # first calls, eager: allocator, cuDNN and kernel set-up
+        eager_outputs(engine, x, t)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    reset_counts()
+    first = [host_seconds(lambda: engine._forward(x, t)) for t in ids]
+    launches = counts()
+    check_launches(f"{tag} captures", launches, served(n_req, backbone, ground))
+    pool = torch.cuda.max_memory_allocated() - m0
+    replay_s = [host_seconds(lambda: engine._forward(x, t))[1] for t in ids]
+    diffs = [as_eager(f"{tag} {len(p)} prompts", out, lambda: eager_outputs(engine, x, t))
+             for (out, _), t, p in zip(first, ids, PROMPTS)]
+    eager_k = device_launches(lambda: eager_outputs(engine, x, ids[1]))
+    graph_k = device_launches(lambda: engine._forward(x, ids[1]))
+    own = same_kernels(f"{tag} {len(PROMPTS[1])} prompts", lambda: engine._forward(x, ids[1]),
+                       lambda: eager_outputs(engine, x, ids[1]))
+    print(f"{tag}: graphs of {[len(p) for p in PROMPTS]} prompts: first call (eager warm-up and "
+          f"capture) host s {[round(s_, 4) for _, s_ in first]}, replay "
+          f"{[round(s_, 4) for s_ in replay_s]}; graph pool {pool} bytes "
+          f"(max_memory_allocated over the captures); replays bit for bit the eager forward "
+          f"(max |replay - eager| {diffs}); a {len(PROMPTS[1])}-prompt request's device kernels, "
+          f"eager {sum(eager_k.values())}, replayed {sum(graph_k.values())}, the port's own "
+          f"{own} of them alike (the device trace); launches of the captures "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     latencies = []
@@ -941,39 +1089,21 @@ def phase_slice(g: torch.Generator, int8: bool = False):
                       or not np.isfinite(res["boxes"]).all()
                       or not np.isfinite(res["scores"]).all()):
                 raise AssertionError(f"bad detections for {res['prompt']!r}")
-    launches = counts()
     peak = torch.cuda.max_memory_allocated()
-    n_req = len(PROMPTS)
-    cfg = engine.cfg
-    n_global = len(cfg.vit_global_blocks)
-    expected = dict.fromkeys(launches, 0)
-    expected.update(with_rope({"window_attention_rope_packed": (cfg.vit_depth - n_global) * n_req,
-                               "long_attention_rope_packed": n_global * n_req,
-                               "long_attention_packed": cfg.enc_layers * n_req}))
-    if int8:
-        # per request: the adapted qkv/fc1/fc2 of every ViT block take K5;
-        # proj and the text encoder's out_proj/c_fc/c_proj take K4
-        expected["int8_lora_gemm_wres"] = 3 * cfg.vit_depth * n_req
-        expected["int8_gemm_wres"] = (cfg.vit_depth + 3 * cfg.text_layers) * n_req
     print(f"{tag}: latency per request (s) {[round(t, 4) for t in latencies]} for "
-          f"{[len(p) for p in PROMPTS]} prompts, peak {peak / 2**30:.3f} GiB, "
-          f"launches { {k: v for k, v in launches.items() if v} }", flush=True)
-    if launches != expected:
-        raise AssertionError(f"{tag} launches {launches} != expected {expected}")
+          f"{[len(p) for p in PROMPTS]} prompts, peak {peak / 2**30:.3f} GiB", flush=True)
+    check_launches(f"{tag} replays", counts(), served(n_req, backbone, ground))
     if int8:
         k5_request_profile(tag, lambda: engine.predict(image, PROMPTS[0]), cfg.vit_depth)
 
     # raw outputs of the last request: finite and of the right shape
-    img, _ = engine.preprocess(image)
-    ids = engine.tokenizer(PROMPTS[-1], context_length=cfg.text_context_length)
-    scores, presence, boxes, masks = engine._forward(
-        torch.from_numpy(img).cuda(), torch.from_numpy(np.asarray(ids, np.int64)).cuda())
+    scores, presence, boxes, masks = first[-1][0]
     b, q, m = len(PROMPTS[-1]), cfg.num_queries, cfg.feat_size * 4
     for name, t, shape in (("scores", scores, (b, q)), ("presence", presence, (b,)),
                            ("boxes", boxes, (b, q, 4)), ("masks", masks, (b, q, m, m))):
         if tuple(t.shape) != shape or not torch.isfinite(t).all():
             raise AssertionError(f"{name}: shape {tuple(t.shape)} (want {shape}) or non-finite")
-    del engine
+    del engine, first
     torch.cuda.empty_cache()
     gemm_int8.GEMM_LORA_FUSED = False
     return launches, latencies, peak
@@ -1189,8 +1319,9 @@ def set_route(packed: bool, fuse_rope: bool, qkv_native: bool) -> None:
 def phase_routes(g: torch.Generator):
     """One full-width bf16 model answers one request (raw outputs of
     ``_forward``, one image, one prompt) per window route; each route's
-    counters show its entry and no other, and its outputs agree with the
-    default route's within SMALL_TOL. Then a ``vit_use_rope=False`` model
+    counters show its entry and no other (a route is part of every graph's
+    key: each request captures its two graphs), and its outputs agree with
+    the default route's within SMALL_TOL. Then a ``vit_use_rope=False`` model
     answers one per route through K1', W-qkv and W-g without RoPE. Returns
     the forward launches by entry."""
     launches = {}
@@ -1204,7 +1335,7 @@ def phase_routes(g: torch.Generator):
         out = engine._forward(torch.from_numpy(img).cuda(),
                               torch.from_numpy(np.asarray(ids, np.int64)).cuda())
         torch.cuda.synchronize()
-        return out, counts(), time.perf_counter() - t0
+        return out, counts(), time.perf_counter() - t0, graph_delta()
 
     cfg = model_config(False)
     n_global = len(cfg.vit_global_blocks)
@@ -1214,10 +1345,11 @@ def phase_routes(g: torch.Generator):
     base = None
     for tag, packed, fuse_rope, qkv_native, entry in ROUTES:
         set_route(packed, fuse_rope, qkv_native)
-        out, got, secs = request(engine)
-        check_launches(f"routes {tag}", got, {
-            entry.__name__: n_win, "long_attention_rope_packed": n_global,
-            "long_attention_packed": cfg.enc_layers})
+        out, got, secs, delta = request(engine)
+        # a route is part of every graph's key: each request captures both units
+        check_launches(f"routes {tag}", got, served(
+            1, {entry.__name__: n_win, "long_attention_rope_packed": n_global},
+            {"long_attention_packed": cfg.enc_layers}, delta))
         launches[entry.__name__] = launches.get(entry.__name__, 0) + got[entry.__name__]
         if base is None:
             base = out
@@ -1236,10 +1368,11 @@ def phase_routes(g: torch.Generator):
     base = None
     for tag, packed, fuse_rope, qkv_native, entry in ROUTES_NO_ROPE:
         set_route(packed, fuse_rope, qkv_native)
-        out, got, secs = request(engine)
+        out, got, secs, delta = request(engine)
         # without RoPE the global blocks take the K3 entry, long_attention_packed
-        check_launches(f"routes no-rope {tag}", got, {
-            entry.__name__: n_win, "long_attention_packed": n_global + cfg.enc_layers})
+        check_launches(f"routes no-rope {tag}", got, served(
+            1, {entry.__name__: n_win, "long_attention_packed": n_global},
+            {"long_attention_packed": cfg.enc_layers}, delta))
         launches[entry.__name__] = launches.get(entry.__name__, 0) + got[entry.__name__]
         base = out if base is None else base
         errs = [(a - b).abs().max().item() for a, b in zip(out, base)]
@@ -1323,10 +1456,12 @@ def host_seconds(fn):
 def phase_processor(g: torch.Generator, int8: bool = False):
     """Sam3Processor at the full config, PROC_REPS times: one set_image,
     then PROMPTS[-1] one prompt at a time (the last with PROC_BOX), launch
-    counts equal to the design's; the median times of set_image, each
-    prompt, and ``predict`` of the same prompts one at a time and together;
-    one profiled set_image and prompt; one prompt's raw outputs bit for bit
-    equal to ``_forward``'s on the same preprocessed image."""
+    counts equal to the design's for each graph captured and none for a
+    replay; the median times of set_image, each prompt, and ``predict`` of
+    the same prompts one at a time and together; one profiled set_image and
+    prompt, their device kernels the eager ones'; the cached features and a
+    text and a box prompt's raw outputs bit for bit the model's own eager
+    forward on the same preprocessed image."""
     tag = "processor-int8" if int8 else "processor"
     gemm_int8.GEMM_LORA_FUSED = int8
     proc = Sam3Processor(model_config(int8), LORA, seed=SEED, device="cuda")
@@ -1344,11 +1479,12 @@ def phase_processor(g: torch.Generator, int8: bool = False):
     for _ in range(PROC_REPS):
         reset_counts()
         t_set.append(host_seconds(lambda: proc.set_image(image))[1])
-        check_launches(f"{tag} set_image", counts(), set_image_launches(cfg))
+        check_launches(f"{tag} set_image", counts(), served(1, set_image_launches(cfg)))
         for j, (prompt, box) in enumerate(zip(prompts, boxes)):
             reset_counts()
             res, secs = host_seconds(lambda: proc.set_text_prompt(prompt, boxes=box))
-            check_launches(f"{tag} set_text_prompt({prompt!r})", counts(), prompt_launches(cfg))
+            check_launches(f"{tag} set_text_prompt({prompt!r})", counts(),
+                           served(1, ground=prompt_launches(cfg)))
             t_prompts[j].append(secs)
             n = res["num_detections"]
             if (res["boxes"].shape != (n, 4) or res["masks_lowres"].shape != (n, m, m)
@@ -1375,19 +1511,32 @@ def phase_processor(g: torch.Generator, int8: bool = False):
               f"a {prof['window_ms']:.3f} ms window, busy share {prof['busy_share']:.4f}",
               flush=True)
 
-    # one prompt, no box: the processor's raw outputs against _forward's on
-    # the same preprocessed image, bit for bit (the same kernels on the same
-    # operands)
-    img, _ = engine.preprocess(image)
-    ids = engine.tokenizer(prompts[:1], context_length=cfg.text_context_length)
-    ref = engine._forward(torch.from_numpy(img).cuda(),
-                          torch.from_numpy(np.asarray(ids, np.int64)).cuda())
-    got = proc.ground(prompts[0], proc.geo_prompt())
-    diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
-    print(f"{tag}: max |processor - _forward| (scores, presence, boxes, masks) at one prompt "
-          f"{diffs}", flush=True)
-    if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-        raise AssertionError(f"{tag}: processor outputs differ from _forward's by {diffs}")
+    # the processor's cached features and raw outputs, a text prompt and a
+    # box prompt, bit for bit the model's own eager forward's on the same
+    # preprocessed image; each unit's replayed kernels the eager ones (the
+    # device trace)
+    x = torch.from_numpy(engine.preprocess(image)[0]).cuda()
+    model = proc.model
+    with torch.inference_mode():
+        diffs = {"set_image": as_eager(f"{tag} set_image",
+                                       [*proc._state["feats"], *proc._state["poss"]],
+                                       lambda: [t for ts in model.backbone_image(x) for t in ts])}
+        for prompt, box in ((prompts[0], None), (prompts[-1], PROC_BOX)):
+            geo, ids = proc.geo_prompt(box), proc._tokens(prompt)
+            diffs[prompt] = as_eager(f"{tag} {prompt!r}", proc.ground(prompt, geo),
+                                     lambda: eager_outputs(engine, x, ids, geo))
+        feats, poss = model.backbone_image(x)
+        batch = Batch(images=None, token_ids=proc._tokens(prompts[0]),
+                      img_ids=torch.zeros((1,), dtype=torch.long, device="cuda"),
+                      geo=proc.geo_prompt())
+        own = [same_kernels(f"{tag} backbone", lambda: engine.backbone_image(x),
+                            lambda: model.backbone_image(x)),
+               same_kernels(f"{tag} grounding", lambda: engine.ground(feats, poss, batch),
+                            lambda: head_outputs(model.ground(feats, poss, batch)))]
+    del feats, poss
+    print(f"{tag}: the replays bit for bit the eager forward: max |replay - eager| {diffs}; "
+          f"the port's kernels of the backbone and a grounding the eager ones' ({own}, the "
+          f"device trace)", flush=True)
     del proc, engine
     torch.cuda.empty_cache()
     gemm_int8.GEMM_LORA_FUSED = False
@@ -1456,11 +1605,10 @@ def phase_validate(g: torch.Generator):
     reset_counts()
     (gts, dts, secs), wall = host_seconds(lambda: validate_images(engine, ds))
     n_global = len(cfg.vit_global_blocks)
-    check_launches("validate", counts(), {
-        k: v * VALIDATE_IMAGES for k, v in {
-            "window_attention_rope_packed": cfg.vit_depth - n_global,
-            "long_attention_rope_packed": n_global,
-            "long_attention_packed": cfg.enc_layers}.items()})
+    check_launches("validate", counts(), served(
+        VALIDATE_IMAGES, {"window_attention_rope_packed": cfg.vit_depth - n_global,
+                          "long_attention_rope_packed": n_global},
+        {"long_attention_packed": cfg.enc_layers}))
     kept = [len(dts[i]) for i in range(VALIDATE_IMAGES)]
     with tempfile.TemporaryDirectory() as out_dir:
         path, t_dump = host_seconds(lambda: dump_predictions(dts, out_dir))
@@ -1563,11 +1711,11 @@ def phase_interactive(g: torch.Generator):
     for _ in range(PROC_REPS):
         reset_counts()
         t_set.append(host_seconds(lambda: pred.set_image(image))[1])
-        check_launches(f"{tag} set_image", counts(), set_image_launches(cfg))
+        check_launches(f"{tag} set_image", counts(), served(1, set_image_launches(cfg)))
         for kw, n in ((CLICK, 3), (BOX_CLICK, 1)):
             reset_counts()
             (masks, iou, lowres), secs = host_seconds(lambda: pred.predict(**kw))
-            check_launches(f"{tag} predict", counts(), {})
+            check_launches(f"{tag} predict", counts(), served(0))
             if kw is CLICK:
                 t_click.append(secs)
             if (masks.shape != (n, 900, 1200) or masks.dtype != bool or iou.shape != (n,)
@@ -1582,8 +1730,7 @@ def phase_interactive(g: torch.Generator):
         raise AssertionError(f"{tag}: heads differ from the CPU's by {worst}")
     reset_counts()
     outs = pred.predict_batch([image, image2], [[[600.0, 450.0]], [[200.0, 300.0]]], [[1], [1]])
-    check_launches(f"{tag} predict_batch", counts(),
-                   {k: 2 * v for k, v in set_image_launches(cfg).items()})
+    check_launches(f"{tag} predict_batch", counts(), served(2, set_image_launches(cfg)))
     if [o[0].shape for o in outs] != [(3, 900, 1200)] * 2:
         raise AssertionError(f"{tag}: predict_batch shapes {[o[0].shape for o in outs]}")
     prof = profile_step(lambda: pred.predict(**CLICK))
@@ -1595,7 +1742,7 @@ def phase_interactive(g: torch.Generator):
     def counted(*a, **k):
         reset_counts()
         out, secs = host_seconds(lambda: plain_prompt(*a, **k))
-        stages_seen.append((counts(), secs))
+        stages_seen.append((counts(), secs, graph_delta()))
         return out
 
     proc.set_text_prompt = counted
@@ -1604,13 +1751,14 @@ def phase_interactive(g: torch.Generator):
                                     threshold=0.0)
     finally:
         del proc.set_text_prompt
-    for i, (st, (launches, _)) in enumerate(zip(stages, stages_seen)):
-        check_launches(f"{tag} stage {i}", launches, prompt_launches(cfg))
+    for i, (st, (launches, _, delta)) in enumerate(zip(stages, stages_seen)):
+        check_launches(f"{tag} stage {i}", launches,
+                       served(1, ground=prompt_launches(cfg), delta=delta))
         if not (np.isfinite(st["scores"]).all() and np.isfinite(st["boxes"]).all()):
             raise AssertionError(f"{tag}: stage {i} outputs are not finite")
     if len(stages) < 2:  # the sampler stops early only when it finds no error
         raise AssertionError(f"{tag}: {len(stages)} stage, no refinement step ran")
-    t_stage = [secs for _, secs in stages_seen]
+    t_stage = [secs for _, secs, _ in stages_seen]
     med = statistics.median
     print(f"{tag}: host s, median of {PROC_REPS}: set_image {med(t_set):.4f} {fmt_s(t_set)}, "
           f"click (multimask) {med(t_click):.4f} {fmt_s(t_click)}, interactive_ground stage "
@@ -1655,7 +1803,7 @@ def count_calls(proc, sync) -> list:
     """Wrap ``proc.set_image`` and ``proc.set_text_prompt`` (instance
     attributes; ``del`` them to unwrap): each call appends (method, its
     first argument for a prompt, its launches, host s to a sync, its
-    detections for a prompt)."""
+    detections for a prompt, its graph_delta)."""
     calls = []
 
     def wrap(name):
@@ -1668,7 +1816,8 @@ def count_calls(proc, sync) -> list:
             sync()
             calls.append((name, a[0] if name == "set_text_prompt" else None, counts(),
                           time.perf_counter() - t0,
-                          out["num_detections"] if name == "set_text_prompt" else None))
+                          out["num_detections"] if name == "set_text_prompt" else None,
+                          graph_delta()))
             return out
 
         setattr(proc, name, counted)
@@ -1737,9 +1886,10 @@ def check_agent(tag: str, cfg: ModelConfig, image: np.ndarray, got: dict) -> Non
     want_names = [("set_image", None)] + [("set_text_prompt", p) for p in AGENT_PHRASES]
     if names != want_names:
         raise AssertionError(f"{tag}: processor calls {names}, expected {want_names}")
-    for name, prompt, launches, _, _ in calls + got["refine_calls"]:
+    for name, prompt, launches, _, _, delta in calls + got["refine_calls"]:
         check_launches(f"{tag} {name}({prompt!r})", launches,
-                       set_image_launches(cfg) if name == "set_image" else prompt_launches(cfg))
+                       served(1, set_image_launches(cfg), delta=delta) if name == "set_image"
+                       else served(1, ground=prompt_launches(cfg), delta=delta))
     # the duplicate grounded nothing (the calls above), and the pruned
     # history's preamble lists the first phrase as tried
     rejected = f"do NOT reuse): ['{AGENT_PHRASES[0]}']" in res.transcript[1]["content"]
@@ -1820,7 +1970,7 @@ def phase_model_options(g: torch.Generator):
     proc.set_image(image).set_text_prompt("warm-up", mask_prompt=mask)
     reset_counts()
     res, secs = host_seconds(lambda: proc.set_text_prompt("crack", mask_prompt=mask))
-    check_launches(f"{tag} mask prompt", counts(), prompt_launches(cfg))
+    check_launches(f"{tag} mask prompt", counts(), served(1, ground=prompt_launches(cfg)))
     if not (np.isfinite(res["scores"]).all() and np.isfinite(res["boxes"]).all()
             and 0.0 <= res["presence"] <= 1.0):
         raise AssertionError(f"{tag}: the mask prompt's outputs are not finite")
@@ -2103,14 +2253,14 @@ def phase_video(g: torch.Generator, smi: str):
     torch.cuda.reset_peak_memory_stats()
     vg = VideoGrounder(proc, num_slots=VIDEO_SLOTS, prob_threshold=0.0, propagate=True,
                        num_maskmem=VIDEO_MASKMEM, max_obj_ptrs=VIDEO_PTRS)
-    want = {**set_image_launches(cfg), **prompt_launches(cfg)}
     secs, n_alive, evicted, outs = [], [], 0, []
     for i, frame in enumerate(frames):
         reset_counts()
         out, s = host_seconds(lambda: vg.step(frame, prompt))
         secs.append(s)
         outs.append(out)
-        check_launches(f"{tag} frame {i}", counts(), want)
+        check_launches(f"{tag} frame {i}", counts(),
+                       served(1, set_image_launches(cfg), prompt_launches(cfg)))
         check_track_state(f"{tag} frame {i}", vg.state, VIDEO_MASKMEM, VIDEO_PTRS)
         n_alive.append(len(out["obj_ids"]))
         # live slots whose ring has taken more writes than it holds
@@ -2199,7 +2349,7 @@ def phase_video(g: torch.Generator, smi: str):
     reset_counts()
     outs, t_track = host_seconds(lambda: list(tp.propagate_in_video()))
     check_launches(f"{tag} tracker predictor", counts(),
-                   {k: (VIDEO_FRAMES - 1) * v for k, v in set_image_launches(cfg).items()})
+                   served(VIDEO_FRAMES - 1, set_image_launches(cfg)))
     tr = tp._state.track
     ring = tr.maskmem_age[:2, 1:].cpu().numpy()
     if (len(outs) != VIDEO_FRAMES or any(sorted(o[1].tolist()) != [1, 2] for o in outs)
@@ -2697,8 +2847,8 @@ def split_reference(cfg: ModelConfig, loader) -> dict:
 def scale_out_frames(cfg: ModelConfig, g: torch.Generator):
     """(c): FrameParallelDetector at world size 1 over SCALE_FRAMES seeded
     1200x900 frames, one prompt, chunk SCALE_CHUNK, against ``_forward`` on
-    each frame alone. -> (launches, max errors, host s a frame: detector,
-    the loop)."""
+    each frame alone. -> (launches, graph_delta, max errors, host s a frame:
+    detector, the loop)."""
     from sam3_lora_tpu_torch.parallel import FrameParallelDetector
 
     engine = SAM3LoRAInference(cfg, LORA, seed=SEED, device="cuda")
@@ -2711,7 +2861,7 @@ def scale_out_frames(cfg: ModelConfig, g: torch.Generator):
     torch.cuda.synchronize()
     reset_counts()
     outs, det_s = host_seconds(lambda: list(det.detect_video(frames, ids)))
-    launches = counts()
+    launches, delta = counts(), graph_delta()
 
     def alone():
         return [[t.cpu().numpy() for t in engine._forward(
@@ -2725,7 +2875,7 @@ def scale_out_frames(cfg: ModelConfig, g: torch.Generator):
         raise AssertionError(f"scale-out (c): {len(outs)} frames out of {SCALE_FRAMES}")
     del engine, det
     torch.cuda.empty_cache()
-    return launches, errs, det_s / SCALE_FRAMES, loop_s / SCALE_FRAMES
+    return launches, delta, errs, det_s / SCALE_FRAMES, loop_s / SCALE_FRAMES
 
 
 def scale_out_checkpoint(base: str) -> dict:
@@ -3061,12 +3211,10 @@ def phase_scale_out(g: torch.Generator, smi: str):
             failed.append(f"(b) steps {[r['steps'] for r in ranks]}")
 
         # (c) the frame-parallel detector at world size 1
-        frame_launches, frame_errs, det_s, loop_s = scale_out_frames(model_config(False), g)
+        frame_launches, frame_delta, frame_errs, det_s, loop_s = scale_out_frames(
+            model_config(False), g)
         n_global = len(cfg.vit_global_blocks)
         n_chunks = SCALE_FRAMES // SCALE_CHUNK
-        frame_want = {"window_attention_rope_packed": (cfg.vit_depth - n_global) * n_chunks,
-                      "long_attention_rope_packed": n_global * n_chunks,
-                      "long_attention_packed": cfg.enc_layers * n_chunks}
         print(f"scale-out (c): FrameParallelDetector, {SCALE_FRAMES} frames of 1200x900 in "
               f"chunks of {SCALE_CHUNK}: host s a frame {det_s:.4f} against {loop_s:.4f} for "
               f"_forward frame by frame; max abs err against each frame alone {frame_errs} (bound "
@@ -3075,7 +3223,10 @@ def phase_scale_out(g: torch.Generator, smi: str):
         if not all(v <= SMALL_TOL for v in frame_errs.values()):
             failed.append(f"(c) outputs off: {frame_errs}")
         try:
-            check_launches("scale-out (c)", frame_launches, frame_want)
+            check_launches("scale-out (c)", frame_launches, served(
+                n_chunks, {"window_attention_rope_packed": cfg.vit_depth - n_global,
+                           "long_attention_rope_packed": n_global},
+                {"long_attention_packed": cfg.enc_layers}, frame_delta))
         except AssertionError as e:
             failed.append(str(e))
 
@@ -3199,12 +3350,6 @@ def reference_state_dict(flat: dict, cfg: ModelConfig) -> dict:
     return sd
 
 
-def request_launches(cfg: ModelConfig) -> dict:
-    """Launches of one ``predict`` of one prompt: set_image's and a prompt's."""
-    return dict(collections.Counter(set_image_launches(cfg)) + collections.Counter(
-        prompt_launches(cfg)))
-
-
 def phase_convert(smi: str) -> None:
     """The reference-checkpoint converter at the full config, bf16: a seeded
     model's base written as a reference-named fp32 ``.pt``, converted by
@@ -3237,7 +3382,7 @@ def phase_convert(smi: str) -> None:
     want = src.predict(image, PROMPTS[0], threshold=0.0)[0]
     reset_counts()
     got = engine.predict(image, PROMPTS[0], threshold=0.0)[0]
-    check_launches("convert", counts(), request_launches(cfg))
+    check_launches("convert", counts(), served(1, set_image_launches(cfg), prompt_launches(cfg)))
     keys = ("scores", "boxes", "masks")
     equal = {k: bool(np.array_equal(got[k], want[k])) for k in keys}
     print(f"convert: {n_ref} reference tensors ({pt_bytes / 2**30:.3f} GiB .pt, written in "
@@ -3301,7 +3446,8 @@ def phase_merge(g: torch.Generator, smi: str) -> None:
     quantizes it (K4 alone). The merged request's raw outputs are held to
     MERGE_CONTROL_FACTOR times the adapted int8 request's distance from the
     adapted bf16 one (one int8 quantization of the base; merging swaps
-    that of W for that of W + dW). Each request's launches and device ms."""
+    that of W for that of W + dW). Each engine's launches as its first
+    request captures its graphs, and a request's device ms."""
     from sam3_lora_tpu_torch.models.lora import merge_lora_into_base, save_lora_weights
     from sam3_lora_tpu_torch.utils.checkpoint import save_base_checkpoint
 
@@ -3356,7 +3502,11 @@ def phase_merge(g: torch.Generator, smi: str) -> None:
                                                 device="cuda"),
                    "merged": SAM3LoRAInference(cfg8, None, base_checkpoint=base_path,
                                                device="cuda")}
-    raw8 = {tag: e._forward(img, ids) for tag, e in engines.items()}
+    raw8, launches = {}, {}
+    for tag, e in engines.items():  # each engine's first request: it captures its graphs
+        reset_counts()
+        raw8[tag] = e._forward(img, ids)
+        launches[tag] = ({k: v for k, v in counts().items() if v}, graph_delta())
     diff8, ctrl8 = max_diffs(raw8["merged"], raw8["adapted"]), max_diffs(raw8["adapted"], adapted)
     print(f"merge: int8 tier, max |merged - adapted| {diff8}; tolerance "
           f"{MERGE_CONTROL_FACTOR} x the adapted int8 request's distance from bf16 {ctrl8}",
@@ -3365,20 +3515,18 @@ def phase_merge(g: torch.Generator, smi: str) -> None:
     if bad or not all(torch.isfinite(t).all() for t in raw8["merged"]):
         raise AssertionError(f"merge: int8 {bad} past {MERGE_CONTROL_FACTOR} x the control")
     del raw8, adapted
-    launches = {}
     for tag, engine in engines.items():
         engine.predict(image, PROMPTS[0])  # first call: set-up
-        reset_counts()
-        engine.predict(image, PROMPTS[0], threshold=0.0)
-        launches[tag] = {k: v for k, v in counts().items() if v}
         prof = profile_step(lambda: engine.predict(image, PROMPTS[0]))
         print(f"merge: int8 tier, {tag} request: {prof['device_ms']:.3f} device ms "
-              f"(torch.profiler), launches {launches[tag]} | {smi}", flush=True)
-    want_a = request_launches(cfg8)
-    want_m = {**want_a, "int8_lora_gemm_wres": 0,
-              "int8_gemm_wres": want_a["int8_gemm_wres"] + want_a["int8_lora_gemm_wres"]}
-    check_launches("merge adapted", {**dict.fromkeys(counts(), 0), **launches["adapted"]}, want_a)
-    check_launches("merge merged", {**dict.fromkeys(counts(), 0), **launches["merged"]}, want_m)
+              f"(torch.profiler), launches of its capture {launches[tag][0]} | {smi}", flush=True)
+    backbone = set_image_launches(cfg8)
+    merged = {**backbone, "int8_lora_gemm_wres": 0,
+              "int8_gemm_wres": backbone["int8_gemm_wres"] + backbone["int8_lora_gemm_wres"]}
+    for tag, design in (("adapted", backbone), ("merged", merged)):
+        got, delta = launches[tag]
+        check_launches(f"merge {tag}", {**dict.fromkeys(counts(), 0), **got},
+                       served(1, design, prompt_launches(cfg8), delta))
     del engines, engine
     torch.cuda.empty_cache()
     gemm_int8.GEMM_LORA_FUSED = False

@@ -12,18 +12,24 @@ an image file or a PIL image, and matplotlib only by ``visualize``.
 
 Adapter hot swap: ``load_adapters`` replaces only the LoRA tensors; the base
 weights stay on the device.
+
+On the card the forward's two units, the image backbone and the grounding
+(with ``head_outputs``), replay CUDA graphs from the engine's ``GraphCache``
+(``graphs.py``): one a shape, captured at its first call; the processor
+shares them through its engine.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .config import LoRAConfig, ModelConfig
-
+from .graphs import GraphCache
 from .models import Batch, GeoPrompt, build_sam3_image_model, init_model
 from .models.lora import load_lora_weights
 from .models.tokenizer import get_default_tokenizer
@@ -110,6 +116,7 @@ class SAM3LoRAInference:
         self.threshold = threshold
         self.device = torch.device(device)  # the card unless the caller asks for the CPU
         self.model = build_sam3_image_model(self.cfg, lora=lora_cfg, device=self.device)
+        self.graphs = GraphCache(self.model)
         self.tokenizer = get_default_tokenizer()
         init_model(self.model, torch.Generator(device=self.device).manual_seed(seed))
         if base_checkpoint:
@@ -123,7 +130,41 @@ class SAM3LoRAInference:
 
     # ------------------------------------------------------------------ #
     def load_adapters(self, path: str) -> int:
-        return load_lora_weights(self.model, path)
+        return load_lora_weights(self.model, path)  # in place: the graphs read the new values
+
+    # ------------------------------------------------------------------ #
+    def backbone_image(self, images: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """``Sam3Image.backbone_image``, from a CUDA graph where the cache
+        engages."""
+        if not self.graphs.engages(images):
+            return self.model.backbone_image(images)
+
+        def unit(x):
+            feats, poss = self.model.backbone_image(x)
+            return feats + poss
+
+        out = self.graphs.run("backbone", unit, [images])
+        return out[:len(out) // 2], out[len(out) // 2:]
+
+    def ground(self, feats: Sequence[torch.Tensor], poss: Sequence[torch.Tensor], batch: Batch):
+        """``head_outputs`` of ``Sam3Image.ground``, from a CUDA graph where
+        the cache engages (no training targets): scores (B, Q), presence
+        (B,), boxes (B, Q, 4) cxcywh in [0, 1], mask probabilities (B, Q, m,
+        m), all fp32."""
+        if batch.targets is not None or not self.graphs.engages(*feats, *poss, batch.token_ids):
+            return head_outputs(self.model.ground(feats, poss, batch))
+        n, geo = len(feats), batch.geo
+        fields = None if geo is None else tuple(
+            f.name for f in dataclasses.fields(GeoPrompt) if getattr(geo, f.name) is not None)
+
+        def unit(*xs):
+            g = None if fields is None else GeoPrompt(**dict(zip(fields, xs[2 * n + 2:])))
+            b = Batch(images=None, token_ids=xs[2 * n], img_ids=xs[2 * n + 1], geo=g)
+            return head_outputs(self.model.ground(list(xs[:n]), list(xs[n:2 * n]), b))
+
+        inputs = [*feats, *poss, batch.token_ids, batch.img_ids,
+                  *(getattr(geo, f) for f in fields or ())]
+        return tuple(self.graphs.run("ground", unit, inputs, tag=fields))
 
     # ------------------------------------------------------------------ #
     @torch.inference_mode()
@@ -142,7 +183,8 @@ class SAM3LoRAInference:
                                                                  device=self.device),
             geo=GeoPrompt.empty(b, self.cfg.max_prompt_boxes, device=self.device),
         )
-        return head_outputs(self.model(batch))
+        feats, poss = self.backbone_image(images)
+        return self.ground(feats, poss, batch)
 
     # ------------------------------------------------------------------ #
     def preprocess(self, image: ImageLike) -> Tuple[np.ndarray, Tuple[int, int]]:

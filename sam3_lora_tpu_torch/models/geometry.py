@@ -24,7 +24,6 @@ import torch.nn as nn
 from ..ops.boxes import box_cxcywh_to_xyxy
 from ..ops.posenc import encode_boxes, encode_xy
 from ..ops.sampling import grid_sample, roi_align
-from ..utils.logging import to_device
 from .fusion_encoder import EncoderLayer
 from .layers import Conv2d, Embedding, LayerNorm, LoRALinear, Spec
 from .tracker import SimpleMaskEncoder
@@ -54,6 +53,14 @@ class GeoPrompt:
             mask=torch.ones((batch, num_slots), dtype=torch.bool, device=device),
             labels=torch.ones((batch, num_slots), dtype=torch.long, device=device),
         )
+
+
+def scale_xyxy(xyxy: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """(..., 4) xyxy times (w, h, w, h), at least in float32: the product
+    with a float32 tensor of (w, h, w, h), bit for bit, by Python numbers,
+    so nothing is uploaded to the device."""
+    xyxy = xyxy.to(torch.promote_types(xyxy.dtype, torch.float32))
+    return torch.stack([xyxy[..., 0::2] * w, xyxy[..., 1::2] * h], dim=-1).flatten(-2)
 
 
 class GeometryEncoder(nn.Module):
@@ -108,9 +115,8 @@ class GeometryEncoder(nn.Module):
 
         boxes = prompt.boxes
         direct = self.boxes_direct_project(boxes)
-        scale = to_device(torch.tensor([w, h, w, h], dtype=torch.float32), boxes.device,
-                          "geo_scale")
-        pooled = roi_align(feats_grid.float(), box_cxcywh_to_xyxy(boxes) * scale, output_size=r)
+        pooled = roi_align(feats_grid.float(), scale_xyxy(box_cxcywh_to_xyxy(boxes), w, h),
+                           output_size=r)
         pooled = self.boxes_pool_project(pooled.reshape(b * p, d, r, r)).reshape(b, p, d)
         cx, cy, ww, hh = boxes.unbind(-1)
         pe = self.boxes_pos_enc_project(encode_boxes(cx, cy, ww, hh, num_pos_feats=d))

@@ -1,5 +1,6 @@
 """Stateful serving API (port of ``sam3_lora_tpu/processor.py``):
-``set_image`` runs the ViT+FPN backbone once and caches its features; each
+``set_image`` runs the ViT+FPN backbone once and caches its features (copies
+out of the engine's graph pool on the card: ``graphs.py``); each
 ``set_text_prompt`` / ``add_geometric_prompt`` then grounds one prompt
 against the cache (text encoder, geometry encoder, fusion encoder, decoder
 and heads: no backbone rerun).
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from .config import LoRAConfig, ModelConfig
-from .inference import ImageLike, SAM3LoRAInference, head_outputs, preprocess_image
+from .inference import ImageLike, SAM3LoRAInference, preprocess_image
 from .models import Batch, GeoPrompt
 from .utils.logging import to_device, to_host, trace_span
 
@@ -55,7 +56,7 @@ class Sam3Processor:
             with trace_span("sam3.preprocess"):
                 img, orig_size = preprocess_image(image, self.cfg.img_size, self.device)
             with trace_span("sam3.forward"):
-                feats, poss = self.model.backbone_image(img)
+                feats, poss = self.engine.backbone_image(img)
             self._state = {"feats": feats, "poss": poss, "orig_size": orig_size}
         return self
 
@@ -94,7 +95,7 @@ class Sam3Processor:
     def _ground(self, token_ids: torch.Tensor, geo: GeoPrompt):
         batch = Batch(images=None, token_ids=token_ids,
                       img_ids=torch.zeros((1,), dtype=torch.long, device=self.device), geo=geo)
-        return head_outputs(self.model.ground(self._state["feats"], self._state["poss"], batch))
+        return self.engine.ground(self._state["feats"], self._state["poss"], batch)
 
     def set_text_prompt(
         self,

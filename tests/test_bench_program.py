@@ -189,3 +189,19 @@ def test_idle_audit_holds_each_sync_span_to_its_copy():
     assert out["end_less_copy_us"]["max"] == pytest.approx(10.0, abs=1e-3)
     assert out["sites"] == {"keep": [1, 0], "masks": [1, 1], "scores": [1, 1]}
     assert out["misses"] == [(4.0, "keep", 1.0)]
+
+
+def test_graph_replays_reader_counts_a_unit_and_is_silent_without_the_cache(monkeypatch):
+    read = harness.reader("graph_replays.serve")
+    for unit in ("request", "prompt"):
+        assert read(ctx(unit, counters={"graph_replays": 9, "host_syncs": 2})) == pytest.approx(4.5)
+        assert read(ctx(unit, counters={"host_syncs": 2})) == 0.0  # the cache never engaged
+    assert read(ctx("train")) is None
+    # a program without the graph cache (an older checkout) gives nothing
+    import importlib.util
+
+    found = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "sam3_lora_tpu_torch.graphs"
+                        else found(name, *a))
+    assert read(ctx("request")) is None

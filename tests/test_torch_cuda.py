@@ -32,7 +32,12 @@ bit for bit the CPU's; the tracker's propagate and memory update at the
 full width against their fp32 CPU run (``chip_smoke.SMALL_TOL``). Scale-out:
 two gloo ranks on the one card (the trainer's bucketed mean and broadcast,
 the frame-parallel all-gather on CUDA tensors), and the frame-parallel
-detector at one rank against each frame alone. The video tier's training
+detector at one rank against each frame alone. The serving forward from
+CUDA graphs (``graphs.py``): ``_forward`` at 1-3 prompts, and the processor
+interleaved with it, bit for bit the model's eager forward; a capture a
+key, a replay a unit, the kernels' launch counters twice eager's at a
+capture (its warm-up and the capture) and untouched by a replay; new
+adapters taken by the same graphs, a merge at the next call. The video tier's training
 losses (``train/video_losses.py``) and the error-region point sampler on
 the card against the CPU in fp32 (``chip_smoke.VT_RTOL`` for each loss
 and its gradient; the sampler's point equal), and chip_smoke's video-train
@@ -1047,3 +1052,147 @@ def test_pil_resize_on_the_card_equals_the_cpu(gen, hw, size):
     x, _ = preprocess_image(image.cpu().numpy(), size[0], "cuda")
     assert x.is_cuda and torch.equal(x.cpu(), preprocess_image(image.cpu().numpy(), size[0],
                                                                "cpu")[0])
+
+
+# ---------------------------------------------------------------------------
+# The serving forward from CUDA graphs (graphs.py): replays against the eager
+# forward on the small configs whose attention and int8 GEMMs run the kernels
+
+GRAPH_PHRASES = ["crack", "hole", "rust", "dent"]
+
+
+def _graph_processor(gen, monkeypatch, int8: bool):
+    """A Sam3Processor (and its engine) at chip_smoke.small_models' widths,
+    bf16, live rank-8 adapters; with ``int8`` the ViT in the int8 tier and
+    GEMM_LORA_FUSED on (K5)."""
+    from sam3_lora_tpu_torch.config import LoRAConfig, tiny_model_config
+    from sam3_lora_tpu_torch.processor import Sam3Processor
+
+    widths = dict(vit_dim=128, vit_heads=2, d_model=128, enc_heads=4)
+    if int8:
+        widths.update(d_model=64, enc_heads=2, base_quant="int8", base_quant_min_dim=128)
+        monkeypatch.setattr(gemm_int8, "GEMM_LORA_FUSED", True)
+    cfg = tiny_model_config(flash_attention_min_seq=16, dtype="bfloat16", **widths)
+    lora = LoRAConfig(rank=8, alpha=16.0, target_modules=("qkv", "fc1", "linear1"))
+    proc = Sam3Processor(cfg, lora, device="cuda")
+    chip_smoke.live_adapters(proc.model, gen)
+    return proc
+
+
+def _graph_image(seed: int, hw=(40, 60)):
+    return np.random.RandomState(seed).randint(0, 256, (*hw, 3)).astype(np.uint8)
+
+
+def _graph_counts(names=("graph_captures", "graph_replays")):
+    from sam3_lora_tpu_torch.utils.logging import counters
+
+    c = counters()
+    return np.array([c.get(k, 0) for k in names])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_graph_replay_equals_eager_predict(gen, monkeypatch, int8):
+    """``_forward`` at 1, 2 and 3 prompts in shuffled order: every replay
+    bit for bit the eager forward, one capture a key (the backbone and a
+    grounding a prompt count), two replays a call, the kernels' launch
+    counters twice a unit's eager launches where the call captured it and
+    nothing where it replayed, and no output of a call overwritten by a
+    later one."""
+    from sam3_lora_tpu_torch.inference import preprocess_image
+
+    proc = _graph_processor(gen, monkeypatch, int8)
+    eng = proc.engine
+    img = preprocess_image(_graph_image(0), eng.cfg.img_size, "cuda")[0]
+    chip_smoke.reset_counts()
+    with torch.inference_mode():
+        eng.model.backbone_image(img)
+    backbone = chip_smoke.counts()
+    kept, seen = [], set()
+    units = ("graph_captures.backbone", "graph_captures.ground")
+    c0 = _graph_counts()
+    for i, n in enumerate((2, 1, 3, 1, 3, 2)):
+        ids = torch.cat([proc._tokens(p) for p in GRAPH_PHRASES[:n]])
+        u0 = _graph_counts(units)
+        chip_smoke.reset_counts()
+        got = eng._forward(img, ids)
+        launched = chip_smoke.counts()
+        captured = (_graph_counts(units) - u0).tolist()
+        chip_smoke.reset_counts()
+        chip_smoke.as_eager("predict", got, lambda: chip_smoke.eager_outputs(eng, img, ids))
+        eager = {k: v // 2 for k, v in chip_smoke.counts().items()}  # two eager forwards
+        assert captured == [int(i == 0), int(n not in seen)]
+        seen.add(n)
+        assert launched == {k: 2 * (captured[0] * backbone[k] + captured[1] * (v - backbone[k]))
+                            for k, v in eager.items()}
+        assert sum(eager.values()) > sum(backbone.values()) > 0
+        kept.append((got, [t.clone() for t in got]))
+    assert (_graph_counts() - c0).tolist() == [4, 12]
+    for got, copy in kept:
+        assert all(torch.equal(a, b) for a, b in zip(got, copy))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_graph_replay_interleaves_the_processor_and_predict(gen, monkeypatch, int8):
+    """``set_image`` and prompts (text, then a box prompt) interleaved with
+    ``predict``'s forward on the same engine: each replay bit for bit the
+    eager forward of its own image; the processor's cached features survive
+    the engine's other replays in either order."""
+    from sam3_lora_tpu_torch.inference import preprocess_image
+
+    proc = _graph_processor(gen, monkeypatch, int8)
+    eng = proc.engine
+    images = [_graph_image(1), _graph_image(2, (50, 50))]
+    x = [preprocess_image(im, eng.cfg.img_size, "cuda")[0] for im in images]
+    box = np.array([[0.5, 0.5, 0.4, 0.3]], np.float32)
+
+    def prompt(i, phrase, boxes=None):
+        geo = proc.geo_prompt(boxes)
+        ids = proc._tokens(phrase)
+        chip_smoke.as_eager(phrase, proc.ground(phrase, geo),
+                            lambda: chip_smoke.eager_outputs(eng, x[i], ids, geo))
+
+    def request(i, n):
+        ids = torch.cat([proc._tokens(p) for p in GRAPH_PHRASES[:n]])
+        chip_smoke.as_eager(f"{n} prompts", eng._forward(x[i], ids),
+                            lambda: chip_smoke.eager_outputs(eng, x[i], ids))
+
+    proc.set_image(images[0])
+    prompt(0, "crack")
+    request(1, 2)
+    prompt(0, "hole")
+    prompt(0, "crack", box)
+    proc.set_image(images[1])
+    request(0, 1)
+    prompt(1, "rust")
+    request(0, 3)
+    prompt(1, "dent", box)
+
+
+def test_graph_cache_takes_new_adapters_and_a_merge(gen, monkeypatch, tmp_path):
+    """After ``load_adapters`` the next call gives the loaded adapters'
+    answers from the same graphs (the load copies in place: no capture);
+    after ``merge_lora_into_base`` (adapters set to None) the merged
+    forward's, captured anew."""
+    from sam3_lora_tpu_torch.inference import preprocess_image
+    from sam3_lora_tpu_torch.models.lora import merge_lora_into_base, save_lora_weights
+
+    proc = _graph_processor(gen, monkeypatch, False)
+    eng = proc.engine
+    img = preprocess_image(_graph_image(3), eng.cfg.img_size, "cuda")[0]
+    ids = torch.cat([proc._tokens(p) for p in GRAPH_PHRASES[:2]])
+    first = [t.clone() for t in eng._forward(img, ids)]
+    save_lora_weights(eng.model, str(tmp_path / "a.npz"))
+    chip_smoke.live_adapters(eng.model, gen, std=0.2)
+    save_lora_weights(eng.model, str(tmp_path / "b.npz"))
+    eng.load_adapters(str(tmp_path / "a.npz"))
+    c0 = _graph_counts()
+    assert all(torch.equal(a, b) for a, b in zip(eng._forward(img, ids), first))
+    eng.load_adapters(str(tmp_path / "b.npz"))
+    got = eng._forward(img, ids)
+    assert (_graph_counts() - c0).tolist() == [0, 4]
+    chip_smoke.as_eager("predict", got, lambda: chip_smoke.eager_outputs(eng, img, ids))
+    assert not torch.equal(got[3], first[3])
+    merge_lora_into_base(eng.model)
+    chip_smoke.as_eager("merged", eng._forward(img, ids),
+                        lambda: chip_smoke.eager_outputs(eng, img, ids))
+    assert (_graph_counts() - c0).tolist() == [2, 6]

@@ -125,7 +125,6 @@ def test_one_update_gives_the_training_span_tree(trainer):
         ("sam3.data.wait", None): 1,
         ("sam3.train_step", None): 1,
         ("sam3.forward", "sam3.train_step"): 1,
-        ("sam3.sync.geo_scale", "sam3.forward"): 1,
         ("sam3.match", "sam3.forward"): 1,
         ("sam3.sync.match_cost", "sam3.match"): 1,
         ("sam3.sync.match_idx", "sam3.match"): 1,
@@ -137,7 +136,7 @@ def test_one_update_gives_the_training_span_tree(trainer):
     # the cost of every matching problem and the targets' validity, fp32
     problems = 2 * cfg.dec_layers - 1 if cfg.dac else cfg.dec_layers
     b, t = batch.targets.valid.shape
-    assert delta == {"host_syncs": 3, "d2h_bytes": problems * b * t * (cfg.num_queries + 1) * 4}
+    assert delta == {"host_syncs": 2, "d2h_bytes": problems * b * t * (cfg.num_queries + 1) * 4}
 
 
 @pytest.fixture(scope="module")
@@ -159,7 +158,6 @@ def test_one_predict_gives_the_serving_span_tree(processor):
         ("sam3.sync.image", "sam3.preprocess"): 1,
         ("sam3.sync.tokens", "sam3.preprocess"): 1,
         ("sam3.forward", "sam3.predict"): 1,
-        ("sam3.sync.geo_scale", "sam3.forward"): 1,
         ("sam3.post", "sam3.predict"): 1,
         ("sam3.sync.scores", "sam3.post"): 1,
         ("sam3.sync.boxes", "sam3.post"): 1,
@@ -170,7 +168,7 @@ def test_one_predict_gives_the_serving_span_tree(processor):
     q = eng.cfg.num_queries
     assert all(res[i]["num_detections"] == q for i in range(n))  # threshold 0 keeps every query
     masks = sum(res[i]["masks"].nbytes for i in range(n))
-    assert delta == {"host_syncs": 5 + 2 * n, "d2h_bytes": n * q * 4 + n * q * 4 * 4 + masks}
+    assert delta == {"host_syncs": 4 + 2 * n, "d2h_bytes": n * q * 4 + n * q * 4 * 4 + masks}
 
 
 def test_set_image_and_two_prompts_give_the_processor_span_tree(processor):
@@ -191,7 +189,6 @@ def test_set_image_and_two_prompts_give_the_processor_span_tree(processor):
         ("sam3.preprocess", "sam3.set_text_prompt"): 2,
         ("sam3.sync.tokens", "sam3.preprocess"): 2,
         ("sam3.forward", "sam3.set_text_prompt"): 2,
-        ("sam3.sync.geo_scale", "sam3.forward"): 2,
         ("sam3.post", "sam3.set_text_prompt"): 2,
         ("sam3.sync.presence", "sam3.post"): 2,
         ("sam3.sync.scores", "sam3.post"): 2,
@@ -202,7 +199,7 @@ def test_set_image_and_two_prompts_give_the_processor_span_tree(processor):
     assert {n for n, _, _ in spans} <= names
     q = processor.cfg.num_queries
     masks = sum(r["masks_lowres"].nbytes for r in res)
-    assert delta == {"host_syncs": 1 + 2 * 7, "d2h_bytes": 2 * (4 + q * 4 + q * 4 * 4) + masks}
+    assert delta == {"host_syncs": 1 + 2 * 6, "d2h_bytes": 2 * (4 + q * 4 + q * 4 * 4) + masks}
 
 
 def test_device_intervals_leave_host_annotations_out():
