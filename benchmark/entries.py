@@ -1,13 +1,15 @@
 """The program's entry points, driven as a user drives them. A traffic file
-names its entry (``"entry"``); each class here builds the program from the
-configuration and the seed, warms up every shape the traffic uses, runs the
-measured window, frees the program, and then works out the reference's
-answers to what the window's own path produced.
+names its entry (``"entry"``: a key of ``ENTRIES``, or a driver file of
+``benchmark/drivers/``, as ``Entry`` says); each class builds the program
+from the configuration and the seed, warms up every shape the traffic uses,
+runs the measured window, frees the program, and then works out the
+reference's answers to what the window's own path produced.
 
 * ``Train``: ``Trainer.setup`` and ``Trainer.train_step`` on batches of the
   port's input path (``COCOSegmentDataset`` -> ``DataLoader`` ->
   ``prefetch_to_device``, as ``cli/train.py`` builds them) over a COCO split
-  that set-up writes. Set-up runs the first ``check_steps`` updates through
+  that set-up writes, in a process whose tensor ops on the host use one
+  intra-op thread. Set-up runs the first ``check_steps`` updates through
   the same call and feed, and keeps what the check needs.
 * ``Predict``: a closed loop of one caller on ``SAM3LoRAInference.predict``
   over a cycle of requests, each with a threshold of its own.
@@ -100,7 +102,37 @@ def reference_model(config: Dict, seed: int, device, lower: bool = False):
 
 
 class Entry:
-    """What every entry shares: the run's inputs and its tallies."""
+    """What every entry shares: the run's inputs and its tallies; and the
+    contract by which ``harness.run`` drives one, built as
+    ``cls(config, traffic, seed, device, workdir)`` from the cell's files.
+
+    * ``unit``: what the window counts, one per span the driver opens round
+      it with ``trace.span`` (``program.UNIT_SPAN`` names the span of the
+      three entries here; any other unit's span is named as the unit, so a
+      ``frame`` driver opens ``span("frame")``). The per-layer readers
+      divide by these spans.
+    * ``attempted``, ``failed``: the units the window started and those
+      that failed (``harness.run`` reads them after the window).
+    * ``setup()``: build the program and warm up every shape the traffic
+      uses (set-up: ``setup_s`` counts it); nothing may compile after it.
+    * ``window(seconds)``: drive the program for ``seconds``.
+    * ``e2e(window_s)``: the cell's end-to-end metrics by their names in
+      ``BENCHMARK.json``, over the whole window; ``peak_gib`` and
+      ``setup_s`` are the harness's own.
+    * ``close()``: free the program (the peak has been read).
+    * ``check()``: the reference's readings of what the window produced,
+      one for every key of the cell's ``limits`` file.
+    * ``work()``: ``{flops, attn, int8}`` of the units the window
+      completed, for the traced readers (``ctx["work"]``).
+    * ``waits`` (optional): host seconds each unit waited for its input
+      (``ctx["data_wait_s"]``).
+
+    A new driver is a new file ``benchmark/drivers/<entry>.py`` whose
+    ``ENTRY`` subclasses this class (``harness.entry_class``). It may import
+    ``benchmark.reference`` and new files beside it, and must not import
+    JAX or the JAX package: a run that loaded them prints no result
+    (``harness.forbidden_modules``).
+    """
 
     unit = ""
 
@@ -119,12 +151,21 @@ class Entry:
 
 class Train(Entry):
     unit = "train"
+    # The process's host-side tensor ops run on one intra-op thread, as
+    # ``torchrun`` launches a training job (OMP_NUM_THREADS=1): the step is
+    # held by the host's launches, and a full pool of intra-op threads beside
+    # the launching thread made it slower, the more so the busier the host's
+    # shared cores were.
+    host_threads = 1
 
     def setup(self):
         from sam3_lora_tpu_torch.config import TrainConfig
         from sam3_lora_tpu_torch.train.data import COCOSegmentDataset, DataLoader
         from sam3_lora_tpu_torch.train.prefetch import prefetch_to_device
         from sam3_lora_tpu_torch.train.trainer import Trainer
+
+        self.saved_threads = torch.get_num_threads()
+        torch.set_num_threads(self.host_threads)
 
         mcfg, lcfg = port_configs(self.config)
         t = self.traffic
@@ -189,6 +230,7 @@ class Train(Entry):
         self.stream.close()
         del self.trainer, self.stream, self.loader
         _free(self.device)
+        torch.set_num_threads(self.saved_threads)
 
     def e2e(self, window_s: float) -> Dict[str, float]:
         return {"train_images_per_s": self.images / window_s}

@@ -2,10 +2,14 @@
 
 Everything a cell is made of is found by name: the cell in
 ``BENCHMARK.json``, its configuration's file, its traffic file
-``benchmark/traffic/<traffic>.json`` (whose ``entry`` picks the driver in
-``entries.py``), its limits ``benchmark/limits/<workload>.json``, and each
-per-layer metric's reader ``benchmark/metrics/<metric>.py`` (a function
-``read(ctx)`` that returns a number, or None when it finds nothing).
+``benchmark/traffic/<traffic>.json``, whose ``entry`` names the driver (a
+class of ``entries.ENTRIES``, else the ``ENTRY`` of
+``benchmark/drivers/<entry>.py``: ``entry_class``), its limits
+``benchmark/limits/<workload>.json``, and each per-layer metric's reader
+``benchmark/metrics/<metric>.py`` (a function ``read(ctx)`` that returns a
+number, or None when it finds nothing). A new cell is new files and new
+entries in ``BENCHMARK.json``: a driver, a reader or a traffic mix is
+never an edit to a file the benchmark has.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from . import compare, trace
+from . import compare, program, trace
 from .entries import ENTRIES, make_workdir, remove_workdir
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -62,13 +66,36 @@ def reports(metric: Dict, workload: str, e2e_names) -> bool:
     return "moves" not in metric or metric["moves"] in e2e_names
 
 
-def reader(name: str) -> Callable:
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + name.replace(".", "_"),
-                                                  path)
+def _load(path: str, module: str):
+    """The module of the file at ``path``, registered as ``module`` (a
+    dataclass or a pickle looks its module up by name)."""
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[module] = mod
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def _module_name(kind: str, name: str) -> str:
+    return f"benchmark_{kind}_" + "".join(c if c.isalnum() else "_" for c in name)
+
+
+def reader(name: str) -> Callable:
+    return _load(os.path.join(HERE, "metrics", name + ".py"), _module_name("metric", name)).read
+
+
+def entry_class(name: str) -> type:
+    """The driver of a traffic file's ``entry``: the class ``entries.ENTRIES``
+    holds under ``name``, else the ``ENTRY`` of ``benchmark/drivers/<name>.py``
+    (a subclass of ``entries.Entry``)."""
+    if name in ENTRIES:
+        return ENTRIES[name]
+    path = os.path.join(HERE, "drivers", name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no entry {name!r}: not one of {sorted(ENTRIES)}, and no "
+                                f"{os.path.relpath(path, repo_root())}")
+    module = _module_name("driver", name)
+    return (sys.modules.get(module) or _load(path, module)).ENTRY
 
 
 def forbidden_modules():
@@ -88,8 +115,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device="cuda", t
     cuda = torch.device(device).type == "cuda"
     workdir = make_workdir()
     try:
-        entry = ENTRIES[files["traffic"]["entry"]](files["config"], files["traffic"], seed,
-                                                    device, workdir)
+        entry = entry_class(files["traffic"]["entry"])(files["config"], files["traffic"], seed,
+                                                        device, workdir)
         entry.setup()
         if cuda:
             torch.cuda.synchronize()
@@ -124,6 +151,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device="cuda", t
         breakdown = None
         if traced:
             dev, spans, win = trace.intervals(prof)
+            named = spans + program.spans(prof, win)  # each gap by the innermost span
             del prof
             ctx = {"workload": workload, "unit": entry.unit, "window_s": win[1] - win[0],
                    "busy_s": trace.covered(dev), "device": dev, "spans": spans,
@@ -135,7 +163,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, device="cuda", t
                         metrics[m["name"]] = {"value": value, "unit": m["unit"]}
             device_info["busy_s"] = ctx["busy_s"]
             device_info["window_s"] = ctx["window_s"]
-            breakdown = trace.breakdown(dev, spans, win)
+            breakdown = trace.breakdown(dev, named, win)
         else:
             for m in bench["end_to_end"]:
                 if reports(m, workload, ()):

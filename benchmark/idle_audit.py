@@ -16,10 +16,9 @@ start and end offsets, µs), each ``sam3.sync.*`` span, of the trace and of
 the record, against the last memcpy that ends inside it (20 µs of slack:
 the share that holds one, quantiles of span end less copy end, µs, the
 counts by site, the misses), and the device intervals a second of the
-window; and ``idle_gaps``, the breakdown's ten longest gaps named by the
-innermost benchmark or program span (``idle_gaps_bench``: by the
-benchmark's spans alone, as the result names them). A program without
-spans gives the metrics and the units alone.
+window; and ``idle_gaps``, the result's breakdown: the ten longest gaps
+named by the innermost benchmark or program span. A program without spans
+gives the metrics, the units and the gaps alone.
 """
 
 from __future__ import annotations
@@ -159,8 +158,6 @@ def main(argv=None) -> int:
         line["covered"] = held / idle_s if idle_s > 0 else None
         line["counters"] = program.counters(ctx)
         line["clock"] = clock_check(ctx, program.spans(prof, win), rec, win)
-        line["idle_gaps_bench"] = line["idle_gaps"]
-        line["idle_gaps"] = trace.breakdown(ctx["device"], ctx["spans"] + rec, win)["idle_gaps"]
     text = json.dumps(line)
     print(text, flush=True)
     if args.out:

@@ -19,7 +19,8 @@ from .trace import Interval, gaps
 
 PREFIX = "sam3."
 SYNC = PREFIX + "sync."
-# the benchmark's span around one unit of each entry (``entries.py``)
+# the benchmark's span around one unit of each entry of ``entries.py``; a
+# driver of ``benchmark/drivers/`` names its span as its unit
 UNIT_SPAN = {"train": "train_step", "request": "request", "prompt": "prompt"}
 
 
@@ -82,8 +83,9 @@ def counters(ctx) -> Optional[Dict[str, int]]:
 
 
 def units(ctx) -> int:
-    """The units (updates, requests, prompts) the traced window started."""
-    name = UNIT_SPAN.get(ctx["unit"])
+    """The units (updates, requests, prompts, ...) the traced window started:
+    the benchmark's spans named by ``UNIT_SPAN``, else by the unit itself."""
+    name = UNIT_SPAN.get(ctx["unit"], ctx["unit"])
     return sum(1 for s in ctx["spans"] if s[2] == name)
 
 

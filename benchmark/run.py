@@ -38,7 +38,9 @@ def main(argv=None) -> int:
 
     from benchmark import harness
 
-    chips = harness.cell_files(args.workload)["cell"]["chips"]
+    files = harness.cell_files(args.workload)
+    harness.entry_class(files["traffic"]["entry"])  # a missing driver fails here, card or none
+    chips = files["cell"]["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"benchmark: {args.workload} needs {chips} CUDA device(s), this machine has {have}",

@@ -10,6 +10,7 @@ measured window; everything is clipped to it.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 from typing import Dict, List, Tuple
 
@@ -34,7 +35,15 @@ def profiler():
 
 
 def _events(prof):
-    """(name, is_device, start s, end s) of every event of the trace."""
+    """(name, is_device, start s, end s) of every event of the trace, read
+    once a profiler: a window's trace holds millions, at some µs each."""
+    out = getattr(prof, "bench_events", None)
+    if out is None:
+        out = prof.bench_events = _read_events(prof)
+    return out
+
+
+def _read_events(prof):
     from torch.autograd import DeviceType
 
     try:
@@ -106,14 +115,20 @@ def device_seconds(dev: List[Interval], patterns) -> float:
 
 def breakdown(dev: List[Interval], spans: List[Interval], window) -> Dict:
     """The 10 device operations of most time, and the 10 longest idle gaps,
-    each named by the innermost host span at its start (``host`` where none
-    is open)."""
+    each named by the innermost host span open over it (``host`` where none
+    is): a gap is cut where a span opens or closes. ``spans`` may hold the
+    benchmark's spans and the program's, which nest inside them."""
     by_name: Dict[str, float] = {}
     for a, b, n in dev:
         by_name[n] = by_name.get(n, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    edges = sorted({t for a, b, _ in spans for t in (a, b)})
+    pieces = []
+    for a, b in gaps(dev, window):
+        cuts = [a] + edges[bisect.bisect_right(edges, a):bisect.bisect_left(edges, b)] + [b]
+        pieces += zip(cuts, cuts[1:])
     named = []
-    for a, b in sorted(gaps(dev, window), key=lambda g: g[0] - g[1])[:10]:
+    for a, b in sorted(pieces, key=lambda g: g[0] - g[1])[:10]:
         open_ = [s for s in spans if s[0] <= a < s[1]]
         inner = min(open_, key=lambda s: s[1] - s[0])[2] if open_ else "host"
         named.append([inner, b - a])
